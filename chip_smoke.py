@@ -3,8 +3,9 @@
 Needs one CUDA card; exits non-zero without one, and never falls back to
 the CPU. Phases, each timed and each fatal on failure:
 
-  1. device + build: builds kernel K1 (the batched 2-NN matcher) from
-     sfm_mvs_pipeline_tpu_torch/csrc/ with nvcc.
+  1. device + build: builds kernel K1 (the batched 2-NN matcher) and the
+     SGM kernels K2a and K2b from sfm_mvs_pipeline_tpu_torch/csrc/, one
+     nvcc process per source, started together; prints the ptxas reports.
   2. K1 against its plain PyTorch version on the card at the main path's
      shape (12 shots x 8192 features x 128 dims, all 66 unordered pairs):
      bit-equal idx / best^2 / second^2 and equal ratio-test masks; CUDA-event
@@ -17,11 +18,23 @@ the CPU. Phases, each timed and each fatal on failure:
      12/12 views, sim(3)-aligned ATE <= 0.1% of the trajectory extent and
      max relative rotation <= 0.25 deg against the renderer's ground truth,
      K1 launched.
+  5. K2a and K2b against their plain PyTorch versions on the card at the
+     1080p render's rect volume, (H, W, D) = (1080, 1920, 96) f32, random
+     costs in [0, 1], P1 = 0.03, P2 = 0.3: bit-equal outputs; CUDA-event
+     medians of kernel and plain version.
+  6. the dense fast-test: the port's CLI on sample_data/insel with
+     --dense --sgm --mesh --colored --stats --artifacts; 3/3 views, dense
+     cloud and mesh written with points and faces, K2a launched (insel
+     densifies at 360x202, under the staged-SGM gate).
+  7. the dense real-size run: the 1080p render of phase 4 through the CLI
+     with -Pfeature-limit=0 --dense --sgm --mesh --colored --stats; 12/12
+     views, K2b launched, dense accuracy against the renderer's geometry
+     (see phase_dense_real_size), the dense wall and its per-stage split.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4]
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]
 """
 
 from __future__ import annotations
@@ -43,6 +56,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG_DIR = os.path.join(ROOT, "chiprun_out")
 K1_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_kernel.cu"
 K1_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:159"
+K2_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/sgm_kernel.cu"
+K2A_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:43"
+K2B_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:155"
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
 
 
 def card_line() -> str:
@@ -90,6 +107,22 @@ def check_outputs(out_dir: str) -> tuple[object, float]:
     return scene, med
 
 
+def timed(fn, reps=5) -> float:
+    """Median CUDA-event time of `reps` calls of fn, in ms."""
+    import torch
+
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
@@ -130,18 +163,6 @@ def phase_kernel(card: str) -> dict:
         raise AssertionError("K1 ratio-test masks differ from the plain version")
     err = float(torch.maximum((bk - bp).abs().max(), (sk - sp).abs().max()))
     n_ties = int((bp == sp).sum())
-
-    def timed(fn, reps=5):
-        ts = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
 
     # alternate plain / kernel so neither gets a warmer card
     ms_p1 = timed(plain)
@@ -237,9 +258,213 @@ def phase_real_size(card: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
     return launches
 
 
+def phase_sgm_kernels(card: str) -> tuple[dict, dict]:
+    """K2a and K2b against their plain versions at the 1080p rect volume.
+    K2a is timed as sgm_aggregate calls it (both axes); K2b as
+    sgm_staged_hwd calls it (bf16 rounding, zeroed accumulator, four
+    directions). Tolerance 0: both kernels keep the plain order of every
+    add, subtract and min."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_bidir_plain, sgm_dir_acc_plain, staged_sum
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    H, W, D, p1, p2 = 1080, 1920, 96, 0.03, 0.3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cost = torch.rand((H, W, D), generator=gen, device="cuda", dtype=torch.float32)
+
+    def k2a():
+        return [K2.sgm_bidir(cost, p1, p2, axis=a) for a in (1, 0)]
+
+    def p2a():
+        return [sgm_bidir_plain(cost, p1, p2, a) for a in (1, 0)]
+
+    def k2b():
+        return K2.sgm_staged_hwd(cost, p1, p2)
+
+    def p2b():
+        return staged_sum(cost, p1, p2, sgm_dir_acc_plain)
+
+    results = []
+    for name, kern, plain, wrap in (("K2a", k2a, p2a, lambda x: x), ("K2b", k2b, p2b, lambda x: [x])):
+        outs_k, outs_p = wrap(kern()), wrap(plain())
+        torch.cuda.synchronize()
+        err = 0.0
+        for ok, op in zip(outs_k, outs_p):
+            if not bool(torch.isfinite(ok).all()):
+                raise AssertionError(f"{name} output has non-finite values")
+            err = max(err, float((ok - op).abs().max()))
+            if not torch.equal(ok, op):
+                n = int((ok != op).sum())
+                raise AssertionError(f"{name} differs from its plain version at {n} entries "
+                                     f"(max abs err {err})")
+        del outs_k, outs_p
+        ms_p1 = timed(plain, reps=3)
+        ms_k1 = timed(kern, reps=3)
+        ms_k2 = timed(kern, reps=3)
+        ms_p2 = timed(plain, reps=3)
+        ms_k = float(np.median([ms_k1, ms_k2]))
+        ms_p = float(np.median([ms_p1, ms_p2]))
+        say(card, f"{name} bit-equal to plain at (H, W, D) = ({H}, {W}, {D}), P1 {p1} P2 {p2} "
+                  f"(max abs err {err}); kernel {ms_k1:.3f}/{ms_k2:.3f} ms, plain "
+                  f"{ms_p1:.3f}/{ms_p2:.3f} ms (median of 3 each)")
+        results.append({"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
+    return results[0], results[1]
+
+
+def ply_counts(path: str) -> tuple[int, int]:
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import read_ply
+
+    if not os.path.exists(path):
+        raise AssertionError(f"{os.path.basename(path)} not written")
+    ply = read_ply(path)
+    pts = np.asarray(ply["points"])
+    if len(pts) and not np.isfinite(pts).all():
+        raise AssertionError(f"{os.path.basename(path)} has non-finite points")
+    faces = ply.get("faces")
+    return len(pts), 0 if faces is None else len(faces)
+
+
+def phase_dense_fast_test(card: str) -> int:
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out-dense-fast-test")
+        argv = ["-Prun=photogrammetrie", f"-Pimage={os.path.join(ROOT, 'sample_data', 'insel')}",
+                f"-Pout={out}", "--dense", "--sgm", "--mesh", "--colored", "--stats", "--artifacts"]
+        K2.sgm_bidir.launches = 0
+        rc, log, wall = run_cli(argv, "chip_smoke_dense_fast_test.log")
+        launches = K2.sgm_bidir.launches
+        if rc != 0:
+            raise AssertionError(f"dense fast-test CLI exited {rc}")
+        scene, med = check_outputs(out)
+        n_rec = int(scene.recovered.sum())
+        n_pts, _ = ply_counts(os.path.join(out, "pointcloud_dense.ply"))
+        n_vm, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
+        depth_files = sorted(f for f in os.listdir(out) if f.startswith("depth_"))
+        say(card, f"dense fast-test: rc 0, {n_rec}/{scene.n_shots} views, {n_pts} dense points, "
+                  f"mesh {n_vm} vertices {n_faces} faces, {len(depth_files)} depth maps, "
+                  f"K2a launches {launches}, wall {wall:.2f} s")
+        if n_rec != 3 or scene.n_shots != 3:
+            raise AssertionError(f"dense fast-test recovered {n_rec}/3 views")
+        if n_pts <= 0 or n_faces <= 0:
+            raise AssertionError(f"dense fast-test: {n_pts} dense points, {n_faces} faces")
+        if not os.path.exists(os.path.join(out, "mesh_dense.png")) or len(depth_files) != 3:
+            raise AssertionError("dense fast-test: texture atlas or depth maps missing")
+        if launches <= 0:
+            raise AssertionError("dense fast-test never launched K2a")
+    return launches
+
+
+def sim3_from_cameras(est_R, est_C, gt_R, gt_C):
+    """(s, R, t) with X_gt = s R X_est + t. The rotation comes from the
+    camera orientations (R = mean of gt_R_i^T est_R_i, projected onto
+    SO(3)), scale and translation from the centres by least squares: the
+    render's camera centres lie on one line, so centres alone leave the
+    roll about that line free."""
+    U, _, Vt = np.linalg.svd(np.einsum("sji,sjk->ik", gt_R, est_R))
+    R = U @ np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))]) @ Vt
+    y = est_C @ R.T
+    yc, gc = y - y.mean(0), gt_C - gt_C.mean(0)
+    s = float((yc * gc).sum() / (yc * yc).sum())
+    return s, R, gt_C.mean(0) - s * y.mean(0)
+
+
+def surface_share(points_gt: np.ndarray, rel: float = 0.01) -> float:
+    """Share of points within `rel` of depth of the render's surfaces
+    (utils/synth.py): the z = 10 plane, or the z = 7 disc of radius 2
+    centred at (2, 0), with 1% slack on the radius for rim pixels. The
+    cameras sit at z ~ 0 looking along +z, so world z is depth to 1%."""
+    x, y, z = points_gt.T
+    on_plane = np.abs(z - 10.0) <= rel * 10.0
+    on_disc = ((x - 2.0) ** 2 + y ** 2 <= (2.0 * 1.01) ** 2) & (np.abs(z - 7.0) <= rel * 7.0)
+    return float(np.mean(on_plane | on_disc)) if len(points_gt) else 0.0
+
+
+def dense_accuracy(out_dir: str, gt_R, gt_C):
+    """(share of dense points on the rendered surfaces, number of points)
+    of a CLI output dir, after the sim(3) of the recovered cameras."""
+    from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat_np
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import read_ply
+
+    scene = load_scene(os.path.join(out_dir, "scene.npz"))
+    rec = np.nonzero(scene.recovered)[0]
+    est_R = aa_to_rotmat_np(scene.poses[rec, :3])
+    est_C = -np.einsum("sji,sj->si", est_R, scene.poses[rec, 3:])
+    s, R, t = sim3_from_cameras(est_R, est_C, gt_R[rec], gt_C[rec])
+    pts = np.asarray(read_ply(os.path.join(out_dir, "pointcloud_dense.ply"))["points"], np.float64)
+    return surface_share(s * pts @ R.T + t), len(pts)
+
+
+# Limit of phase 7: the JAX package's CLI (--dense --sgm, rect engine) on
+# the CPU, on this render cut to 480x270 (f = 420), recovered 12/12 views
+# and put 0.9917 of its 202,281 fused points within 1% of depth of the
+# surfaces. The limit leaves ~4 points of room for the full size (the
+# staged route's bf16 cost, 16x the pixels per surface patch) and the
+# port's own arithmetic on the card, and is not below 0.9.
+DENSE_SHARE_LIMIT = 0.95
+
+
+def phase_dense_real_size(card: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
+    """The 1080p render through the CLI's dense path (staged SGM, K2b).
+
+    Accuracy: the sim(3) from the recovered cameras to the renderer's maps
+    the fused cloud into the render's frame; the share of points within 1%
+    of depth of the rendered surface must reach DENSE_SHARE_LIMIT (its
+    comment says how it was set). The render runs at full 1920x1080 with
+    all 12 views."""
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+    from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+    from sfm_mvs_pipeline_tpu_torch.utils.synth import render_views
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "views")
+        _, gt_R, gt_C = render_views(data, n_views, h, w, f)
+        say(card, f"rendered {n_views} views at {w}x{h} in {time.perf_counter() - t0:.1f} s")
+        out = os.path.join(tmp, "out-dense")
+        argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0",
+                "--dense", "--sgm", "--mesh", "--colored", "--stats"]
+        K2.sgm_dir_acc.launches = 0
+        stage_timer.enable()
+        try:
+            rc, log, wall = run_cli(argv, "chip_smoke_dense_real_size.log")
+            split = stage_timer.report()
+        finally:
+            stage_timer.enable(False)
+        launches = K2.sgm_dir_acc.launches
+        if rc != 0:
+            raise AssertionError(f"dense real-size CLI exited {rc}")
+        scene, med = check_outputs(out)
+        n_rec = int(scene.recovered.sum())
+        n_vm, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
+        share, n_pts = dense_accuracy(out, gt_R, gt_C)
+        dense_s = split.get("dense", (float("nan"), 0))[0]
+        parts = ["load + undistort", "rect sweep", "sweep", "sgm", "consensus", "fusion", "mesh",
+                 "refine", "texture"]
+        rest = dense_s - sum(split.get(k, (0.0, 0))[0] for k in parts)
+        say(card, f"dense real-size: {n_rec}/{n_views} views, {n_pts} dense points, "
+                  f"{share:.4%} within 1% of depth of the surfaces (limit {DENSE_SHARE_LIMIT:.0%}), "
+                  f"mesh {n_vm} vertices {n_faces} faces, K2b launches {launches}, "
+                  f"CLI wall {wall:.2f} s")
+        say(card, f"dense stage wall {dense_s:.3f} s (synchronising stage timers): "
+                  + "; ".join(f"{k} {split[k][0]:.3f} s x{split[k][1]}" for k in parts if k in split)
+                  + f"; other {rest:.3f} s")
+        if n_rec != n_views:
+            raise AssertionError(f"dense real-size recovered {n_rec}/{n_views} views")
+        if n_pts <= 0 or n_faces <= 0:
+            raise AssertionError(f"dense real-size: {n_pts} dense points, {n_faces} faces")
+        if not share >= DENSE_SHARE_LIMIT:
+            raise AssertionError(f"dense real-size: {share:.4%} of points on the surfaces")
+        if launches <= 0:
+            raise AssertionError("dense real-size never launched K2b")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4")
+    ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
     import torch
@@ -250,16 +475,18 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     card = card_line()
     print(card, flush=True)
-    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, sgm_kernel
 
     say(card, f"torch {torch.__version__} cuda {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    K.build(verbose=True)
-    say(card, f"phase 1: K1 built in {time.perf_counter() - t0:.2f} s")
+    build.build(match_kernel.SOURCE, sgm_kernel.SOURCE, verbose=True)
+    say(card, f"phase 1: K1, K2a and K2b built in {time.perf_counter() - t0:.2f} s")
 
     entry = {"name": "two_nn_batch_fused", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES}
+    k2a = {"name": "sgm_bidir", "route": "cuda", "source": K2_SOURCE, "replaces": K2A_REPLACES}
+    k2b = {"name": "sgm_dir_acc", "route": "cuda", "source": K2_SOURCE, "replaces": K2B_REPLACES}
     if 2 in phases:
         t0 = time.perf_counter()
         entry.update(phase_kernel(card))
@@ -272,10 +499,24 @@ def main() -> int:
         t0 = time.perf_counter()
         entry["launches"] = phase_real_size(card)
         say(card, f"phase 4: {time.perf_counter() - t0:.2f} s")
-    if phases != {1, 2, 3, 4}:
+    if 5 in phases:
+        t0 = time.perf_counter()
+        res_a, res_b = phase_sgm_kernels(card)
+        k2a.update(res_a)
+        k2b.update(res_b)
+        say(card, f"phase 5: {time.perf_counter() - t0:.2f} s")
+    if 6 in phases:
+        t0 = time.perf_counter()
+        k2a["launches"] = phase_dense_fast_test(card)
+        say(card, f"phase 6: {time.perf_counter() - t0:.2f} s")
+    if 7 in phases:
+        t0 = time.perf_counter()
+        k2b["launches"] = phase_dense_real_size(card)
+        say(card, f"phase 7: {time.perf_counter() - t0:.2f} s")
+    if phases != ALL_PHASES:
         print(f"partial run (phases {sorted(phases)}): no result line", flush=True)
         return 3
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, k2a, k2b]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

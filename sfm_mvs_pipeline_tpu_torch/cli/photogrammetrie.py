@@ -1,11 +1,12 @@
-"""The end-to-end photogrammetry driver CLI (sparse branch).
+"""The end-to-end photogrammetry driver CLI.
 
 Port of sfm_mvs_pipeline_tpu/cli/photogrammetrie.py, after
 PhotogrammetrieCli (ref: src/cli/PhotogrammetrieCli.cpp:45-247): workdir
 prep -> stats sampler -> SIFT -> scene -> SfM -> PLYs, stats, artifacts and
-the scene.npz checkpoint. The flags are the JAX package's; the ones whose
-stages are not ported yet (--dense, -Presume=, ORB, FLANN, -Pprofile=)
-exit non-zero with a "not yet ported" message.
+the scene.npz checkpoint -> dense MVS (--dense), or dense MVS resumed from a
+checkpoint (-Presume=). The flags are the JAX package's; the ones whose
+stages are not ported yet (-Pdense-method=patchmatch without --sgm, ORB,
+FLANN, -Pprofile=) exit non-zero with a "not yet ported" message.
 
 Work runs on the card when one is present, else on the CPU.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import tempfile
 
 import numpy as np
 
@@ -25,7 +27,7 @@ log = logging.AppLogger("PhotogrammetrieCli")
 
 def print_usage() -> None:
     print(
-        """photogrammetrie — sparse SfM (PyTorch + CUDA port)
+        """photogrammetrie — sparse SfM + dense MVS (PyTorch + CUDA port)
 
   -Pimage=<dir|file>                 image directory (or repeated files)
   -Pout=<dir>                        working/output directory (default ./out)
@@ -48,15 +50,26 @@ def print_usage() -> None:
   -Ppointcloud-point-merge-distance=X    (default 0.01)
   -Ppointcloud-feature-merge-distance=X  (default 20)
   -Pomp-feature-threads=N            (accepted for compat; batching replaces it)
+  -Presume=<scene.npz>               skip SfM, resume from a scene checkpoint
   --distinct-matches                 drop ambiguous (shared-target) matches
-  --colored                          colorize the sparse cloud
+  --colored                          colorize the sparse cloud (+ texture the
+                                     mesh, like the reference's TextureMesh)
+  --dense                            run dense MVS
+  --sgm                              SGM aggregation of the depth cost volumes
+  -Pdense-method=rect|sweep          depth-map algorithm (default rect =
+                                     rectified disparity sweep; sweep = joint
+                                     plane-sweep volume)
+  --mesh                             mesh the dense cloud
+  --no-decimate                      skip mesh decimation
+  --refine-mesh                      photometric mesh refinement (may also
+                                     degrade the mesh, as the reference warns)
   --stats                            write statistics CSVs + resource samples
-  --artifacts                        keep debug artifacts (keypoints, matches)
+  --artifacts                        keep debug artifacts (keypoints, matches,
+                                     depth maps)
   --help
 
-Not yet ported (exit non-zero): --dense (and --sgm, --mesh, -Pdense-method=,
---refine-mesh, --no-decimate with it), -Presume=, -Pprofile=,
--Pfeature-detector=orb, -Pfeature-matcher=flann."""
+Not yet ported (exit non-zero): -Pdense-method=patchmatch (without --sgm),
+-Pprofile=, -Pfeature-detector=orb, -Pfeature-matcher=flann."""
     )
 
 
@@ -69,10 +82,9 @@ def prepare_working_dir(path: str) -> None:
 
 def _not_ported(args: AppArgs) -> str | None:
     """The first requested feature this port does not have yet, if any."""
-    if args.is_flag("dense"):
-        return "--dense (dense MVS)"
-    if args.get("resume"):
-        return "-Presume="
+    # as in the JAX package, patchmatch with --sgm runs the sweep with SGM
+    if args.is_flag("dense") and _dense_method(args) == "patchmatch" and not args.is_flag("sgm"):
+        return "-Pdense-method=patchmatch"
     if args.get("profile"):
         return "-Pprofile="
     if args.get("feature-detector", "sift").lower() == "orb":
@@ -92,23 +104,43 @@ def main(args: AppArgs) -> int:
         return 2
     out_dir = args.get("out", "out")
     image_args = args.get_all("image")
-    if not image_args:
+    resume = args.get("resume")
+    if not image_args and not resume:
         log.error("no -Pimage given")
         print_usage()
         return 2
-    prepare_working_dir(out_dir)
 
-    sampler = None
-    if args.is_flag("stats"):
-        from sfm_mvs_pipeline_tpu_torch.utils.stats import ResourceSampler
-
-        sampler = ResourceSampler(os.path.join(out_dir, "app.stat.csv"))
-        sampler.start()
+    # a resume checkpoint inside the output dir (resuming from the previous
+    # run's own scene.npz) must survive the workdir wipe below: stash it in a
+    # temporary directory, removed again when the run ends
+    stash = None
+    if resume and os.path.exists(resume):
+        r_real = os.path.realpath(resume)
+        out_real = os.path.realpath(out_dir)
+        if r_real == out_real or r_real.startswith(out_real + os.sep):
+            stash = tempfile.mkdtemp(prefix="sfm_resume_")
+            for p in (resume, resume + ".json"):
+                if os.path.exists(p):
+                    shutil.copy2(p, stash)
+            args.params["resume"] = [os.path.join(stash, os.path.basename(resume))]
     try:
-        return _run_inner(args, out_dir, image_args)
+        prepare_working_dir(out_dir)
+        sampler = None
+        if args.is_flag("stats"):
+            from sfm_mvs_pipeline_tpu_torch.utils.stats import ResourceSampler
+
+            sampler = ResourceSampler(os.path.join(out_dir, "app.stat.csv"))
+            sampler.start()
+        try:
+            if args.get("resume"):
+                return _run_resumed(args, out_dir, args.get("resume"))
+            return _run_inner(args, out_dir, image_args)
+        finally:
+            if sampler:
+                sampler.stop()
     finally:
-        if sampler:
-            sampler.stop()
+        if stash:
+            shutil.rmtree(stash, ignore_errors=True)
 
 
 def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
@@ -236,6 +268,59 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
         _write_artifacts(scene, out_dir)
     # durable scene checkpoint, the same format the JAX package writes
     save_scene(scene, os.path.join(out_dir, "scene.npz"))
+    if args.is_flag("dense"):
+        _run_dense(args, scene, out_dir)
+    log.info("done")
+    return 0
+
+
+def _run_dense(args: AppArgs, scene, out_dir: str) -> None:
+    """The dense branch (ref: MVS stage of PhotogrammetrieCli.cpp:229-240)."""
+    from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import MVSConfig, run_mvs
+    from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
+
+    cfg = MVSConfig(
+        use_sgm=args.is_flag("sgm"),
+        method=_dense_method(args),
+        mesh=args.is_flag("mesh"),
+        decimate=not args.is_flag("no-decimate"),
+        refine_mesh=args.is_flag("refine-mesh"),
+        texture=args.is_flag("colored"),
+        keep_artifacts=args.is_flag("artifacts"),
+    )
+    with stage("dense"):
+        run_mvs(scene, out_dir, cfg, log=logging.AppLogger("MVS").info)
+
+
+def _run_resumed(args: AppArgs, out_dir: str, resume_path: str) -> int:
+    """Resume from a scene checkpoint: re-run exports and/or dense MVS
+    without repeating SfM (reference mvs.bin parity)."""
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene, save_scene
+    from sfm_mvs_pipeline_tpu_torch.utils.images import colorize_points
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import write_camera_frustums_ply, write_ply_points
+
+    scene = load_scene(resume_path)
+    log.info(f"resumed scene: {scene.n_shots} shots, {scene.n_points} points, "
+             f"{scene.n_obs} observations")
+    if args.is_flag("colored"):
+        colorize_points(scene)
+    # re-save the checkpoint into the (wiped) workdir so resumed runs keep
+    # the artifact contract of full runs and can themselves be resumed
+    save_scene(scene, os.path.join(out_dir, "scene.npz"))
+    live = scene.point_valid
+    write_ply_points(
+        os.path.join(out_dir, "pointcloud_sparse.ply"),
+        scene.points[live],
+        scene.colors[live] if args.is_flag("colored") else None,
+    )
+    write_camera_frustums_ply(
+        os.path.join(out_dir, "cameras_recovered.ply"),
+        scene.poses[scene.recovered],
+        scene.intrinsics[0],
+        scene.image_size,
+    )
+    if args.is_flag("dense"):
+        _run_dense(args, scene, out_dir)
     log.info("done")
     return 0
 
@@ -265,25 +350,12 @@ def _match_precision(args: AppArgs) -> str:
     return mode
 
 
-def _undistort_image(img: np.ndarray, intr: np.ndarray) -> np.ndarray:
-    """Resample an image so straight lines are straight under pinhole K:
-    for each target pixel, normalized -> distort -> source pixel, bilinear
-    with zeros outside (the map cv2.initUndistortRectifyMap builds)."""
-    import cv2
-
-    h, w = img.shape[:2]
-    f, cx, cy, k1, k2, p1, p2 = (float(v) for v in intr[:7])
-    ys, xs = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64), indexing="ij")
-    x = (xs - cx) / f
-    y = (ys - cy) / f
-    r2 = x * x + y * y
-    radial = 1.0 + r2 * (k1 + k2 * r2)
-    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
-    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
-    return cv2.remap(
-        img.astype(np.float32), (xd * f + cx).astype(np.float32), (yd * f + cy).astype(np.float32),
-        cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT, borderValue=0,
-    )
+def _dense_method(args: AppArgs) -> str:
+    """Validated -Pdense-method= (typos are rejected, not defaulted)."""
+    method = args.get("dense-method", "rect").lower()
+    if method not in ("rect", "sweep", "patchmatch"):
+        raise ValueError(f"unknown -Pdense-method={method} (expected rect|sweep|patchmatch)")
+    return method
 
 
 def _write_artifacts(scene, out_dir: str) -> None:
@@ -292,6 +364,7 @@ def _write_artifacts(scene, out_dir: str) -> None:
     observation table), undistorted images, scene.txt."""
     import cv2
 
+    from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import _undistort_image
     from sfm_mvs_pipeline_tpu_torch.utils.images import load_rgb
 
     art = os.path.join(out_dir, "artifacts")

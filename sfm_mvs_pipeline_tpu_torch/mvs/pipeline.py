@@ -1,0 +1,272 @@
+"""Dense MVS orchestration: undistort -> ladder -> depth maps -> fuse -> mesh.
+
+Port of sfm_mvs_pipeline_tpu/mvs/pipeline.py, after MVS::densifyScene /
+MVS::meshScene (ref: src/photogrammetrie/mvs/MVS.cpp:100-181) and the
+exporter's undistorted-image handoff (ref: OpenMvsUtils.cpp:136-152):
+  * resolution ladder: max 3200 (ref: MVS.h:60-61), never upsampled
+  * 5 neighbor views (ref: MVS.h:58)
+  * 3-view fusion inliers (ref: MVS.h:62)
+  * depth engines `rect` (default) and `sweep`, SGM with --sgm
+    (ref: MVS.cpp:112-120)
+  * meshing + cleanup + optional refine/texture (ref: MVS.cpp:130-181)
+
+One device: the view-sharded branch of the JAX package (parallel/mvs.py)
+is not ported, nor is PatchMatch (`method="patchmatch"` without --sgm
+raises). As in the JAX package, `patchmatch` with --sgm runs the sweep
+engine with SGM.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
+
+
+@dataclasses.dataclass
+class MVSConfig:
+    max_resolution: int = 3200
+    n_neighbors: int = 5
+    n_planes: int = 96
+    window_radius: int = 3
+    max_cost: float = 0.35
+    min_fusion_views: int = 3
+    fusion_tolerance: float = 0.01
+    use_sgm: bool = False
+    sgm_p1: float = 0.03
+    sgm_p2: float = 0.3
+    # depth-map method:
+    #   "rect"       rectified pairwise disparity sweep (mvs/rectified.py)
+    #   "sweep"      joint plane-sweep cost volume (mvs/plane_sweep.py)
+    #   "patchmatch" not yet ported (runs the sweep when use_sgm is set)
+    method: str = "rect"
+    mesh: bool = False
+    decimate: bool = True
+    refine_mesh: bool = False
+    texture: bool = False
+    keep_artifacts: bool = False
+
+
+def _undistort_image(img: np.ndarray, intr: np.ndarray) -> np.ndarray:
+    """Resample an image so straight lines are straight under pinhole K.
+
+    For each undistorted target pixel: normalized -> distort -> source pixel
+    (the map cv2.initUndistortRectifyMap builds; the reference exports
+    undistorted PNGs the same way, OpenMvsUtils.cpp:136-150), sampled
+    bilinearly with the dense engines' clamped taps. Returns float32."""
+    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch.models.cameras import (
+        distort_normalized,
+        normalized_to_pixels,
+        pixels_to_normalized,
+    )
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import _bilinear_hw, pixel_grid
+
+    dev = default_device()
+    h, w = img.shape[:2]
+    intr_d = torch.as_tensor(np.asarray(intr, np.float32), device=dev)
+    uv = pixel_grid(h, w, torch.float32, dev)[:2].T  # (H*W, 2)
+    xy = pixels_to_normalized(intr_d, uv)  # undistorted normalized (target)
+    src = normalized_to_pixels(intr_d, distort_normalized(intr_d, xy)).reshape(h, w, 2)
+    img_d = torch.as_tensor(np.ascontiguousarray(img), device=dev).to(torch.float32)
+    if img.ndim == 2:
+        return _bilinear_hw(img_d, src[..., 0], src[..., 1])[0].cpu().numpy()
+    chans = [_bilinear_hw(img_d[..., c].contiguous(), src[..., 0], src[..., 1])[0]
+             for c in range(img.shape[2])]
+    return torch.stack(chans, dim=-1).cpu().numpy()
+
+
+def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: None) -> dict:
+    """Densify (and optionally mesh) a reconstructed scene. Writes
+    pointcloud_dense.ply (+ mesh_dense.ply) into out_dir. Returns results."""
+    import cv2
+
+    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch.mvs.fusion import fuse_depth_maps
+    from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import depth_range, select_neighbors
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import (
+        make_depth_planes,
+        sweep_cost_volume,
+        wta_depth,
+    )
+    from sfm_mvs_pipeline_tpu_torch.mvs.rectified import (
+        derive_max_disp,
+        rect_geometry_ok,
+        rectified_depth,
+    )
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_aggregate
+    from sfm_mvs_pipeline_tpu_torch.utils.images import load_rgb
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_points
+
+    cfg = cfg or MVSConfig()
+    if cfg.method not in ("rect", "sweep", "patchmatch"):
+        raise ValueError(f"unknown dense method {cfg.method!r}")
+    if cfg.method == "patchmatch" and not cfg.use_sgm:
+        raise NotImplementedError(
+            "-Pdense-method=patchmatch is not yet ported to sfm_mvs_pipeline_tpu_torch")
+    dev = default_device()
+    rec = [int(s) for s in np.nonzero(scene.recovered)[0]]
+    if len(rec) < 2:
+        log("not enough recovered views for densification")
+        return {}
+    w0, h0 = scene.image_size
+    intr0 = scene.intrinsics[0]
+
+    # resolution ladder (ref: resetImageResoloution semantics); never
+    # upsample beyond native
+    scale = 1.0
+    if max(w0, h0) > cfg.max_resolution:
+        scale = cfg.max_resolution / max(w0, h0)
+    w = int(round(w0 * scale))
+    h = int(round(h0 * scale))
+    intr = intr0.copy()
+    intr[:3] *= scale
+    intr_pinhole = intr.copy()
+    intr_pinhole[3:] = 0.0  # images get undistorted below
+
+    method = "SGM" if cfg.use_sgm else {"sweep": "plane-sweep"}.get(cfg.method, "rectified-sweep")
+    log(f"densifying {len(rec)} views at {w}x{h} ({method}, {cfg.n_planes} planes)")
+
+    with stage("load + undistort"):
+        grays, rgbs = [], []
+        for s in rec:
+            rgb = load_rgb(scene.image_paths[s], (w0, h0))
+            if scale != 1.0:
+                rgb = cv2.resize(rgb, (w, h), interpolation=cv2.INTER_AREA)
+            rgb_u = _undistort_image(rgb, intr)
+            gray = cv2.cvtColor(rgb_u.astype(np.uint8), cv2.COLOR_RGB2GRAY)
+            grays.append(gray.astype(np.float32) / 255.0)
+            rgbs.append(rgb_u.astype(np.uint8))
+        grays = np.stack(grays)
+        rgbs = np.stack(rgbs)
+        grays_d = torch.as_tensor(grays, device=dev)
+
+    neighbors = select_neighbors(scene, cfg.n_neighbors)
+    idx_of = {s: i for i, s in enumerate(rec)}
+
+    depth_maps = np.zeros((len(rec), h, w), np.float32)
+    valids = np.zeros((len(rec), h, w), bool)
+    poses = scene.poses[rec].astype(np.float32)
+    poses_d = torch.as_tensor(poses, device=dev)
+    intr_d = torch.as_tensor(intr_pinhole, dtype=torch.float32, device=dev)
+
+    # Rect-engine degeneracy precheck: views whose EVERY neighbor fails the
+    # rectification-geometry gate (near-forward motion) would produce empty
+    # depth maps; route those views through the warp-based plane sweep
+    # instead, and log partially-masked views.
+    rect_fallback: set[int] = set()
+    if cfg.method == "rect":
+        for i, s in enumerate(rec):
+            nbrs_i = [idx_of[n] for n in neighbors.get(s, []) if n in idx_of]
+            if not nbrs_i:
+                continue
+            geom_ok = rect_geometry_ok(poses[i], poses[nbrs_i])
+            n_bad = int((~geom_ok).sum())
+            if not geom_ok.any():
+                rect_fallback.add(i)
+                log(
+                    f"view {s}: all {len(nbrs_i)} neighbors fail the "
+                    "rectification geometry gate (near-forward baseline) — "
+                    "falling back to plane sweep for this view"
+                )
+            elif n_bad:
+                log(f"view {s}: {n_bad}/{len(nbrs_i)} neighbors masked by "
+                    "the rectification geometry gate")
+
+    for i, s in enumerate(rec):
+        nbrs = [idx_of[n] for n in neighbors.get(s, []) if n in idx_of]
+        if not nbrs:
+            log(f"view {s}: no neighbors, skipped")
+            continue
+        z_lo, z_hi = depth_range(scene, s)
+        if cfg.method == "rect" and i not in rect_fallback:
+            # --sgm composes with the rectified engine: 4-path aggregation
+            # on the per-pair rectified disparity volume
+            cap = cfg.n_neighbors
+            nb = (nbrs + [nbrs[0]] * cap)[:cap]
+            nb_ok = np.zeros(cap, bool)
+            nb_ok[: min(len(nbrs), cap)] = True
+            md = derive_max_disp(poses[i], poses[nb], float(intr_pinhole[0]), float(z_lo), w)
+            depth, cost, valid = rectified_depth(
+                grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi,
+                n_levels=cfg.n_planes, window_radius=cfg.window_radius,
+                max_cost=cfg.max_cost, max_disp=md, nbr_valid=nb_ok,
+                use_sgm=cfg.use_sgm, sgm_p1=cfg.sgm_p1, sgm_p2=cfg.sgm_p2,
+            )
+        else:
+            planes = torch.as_tensor(
+                make_depth_planes(z_lo, z_hi, cfg.n_planes).astype(np.float32), device=dev)
+            with stage("sweep"):
+                cv = sweep_cost_volume(grays_d[i], grays_d[nbrs], poses_d[i], poses_d[nbrs],
+                                       intr_d, planes, window_radius=cfg.window_radius)
+            if cfg.use_sgm:
+                with stage("sgm"):
+                    cv = sgm_aggregate(cv, cfg.sgm_p1, cfg.sgm_p2)
+            with stage("sweep"):
+                depth, cost, valid = wta_depth(cv, planes, cfg.max_cost)
+        depth_maps[i] = depth.cpu().numpy()
+        valids[i] = valid.cpu().numpy()
+        log(f"view {s}: depth range [{z_lo:.2f}, {z_hi:.2f}], "
+            f"{int(valids[i].sum())}/{h*w} valid px")
+        if cfg.keep_artifacts:
+            np.save(os.path.join(out_dir, f"depth_{s:04d}.npy"), depth_maps[i])
+
+    with stage("fusion"):
+        fused = fuse_depth_maps(
+            depth_maps, valids, poses, intr_pinhole.astype(np.float32), rgbs,
+            # can't demand more consistent views than exist (tiny scenes)
+            min_views=min(cfg.min_fusion_views, len(rec)),
+            rel_tolerance=cfg.fusion_tolerance,
+            log=log,
+        )
+        log(f"fused dense cloud: {len(fused['points'])} points")
+        write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
+                         fused["points"], fused["colors"], fused["normals"])
+
+    results = {"dense": fused, "depth_maps": depth_maps, "valids": valids}
+    if cfg.mesh:
+        results["mesh"] = _mesh(cfg, out_dir, depth_maps, valids, poses,
+                                intr_pinhole.astype(np.float32), rgbs, grays, log, results)
+    return results
+
+
+def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, results):
+    """Mesh the depth maps, optionally refine and texture; writes
+    mesh_dense.ply (textured when cfg.texture, with its atlas PNG)."""
+    from sfm_mvs_pipeline_tpu_torch.mvs.mesh import mesh_from_depth_maps
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_mesh
+
+    with stage("mesh"):
+        mesh = mesh_from_depth_maps(depth_maps, valids, poses, intr, rgbs,
+                                    decimate=cfg.decimate, log=log)
+    if cfg.refine_mesh and len(mesh["faces"]):
+        # photometric refinement (openMVS RefineMesh stand-in, ref: MVS.cpp:157-172)
+        from sfm_mvs_pipeline_tpu_torch.mvs.refine import refine_mesh_photometric
+
+        with stage("refine"):
+            mesh["vertices"] = refine_mesh_photometric(
+                mesh["vertices"], mesh["faces"], poses, intr, grays, log=log)
+    path = os.path.join(out_dir, "mesh_dense.ply")
+    if cfg.texture and len(mesh["faces"]):
+        # texture atlas + textured PLY (openMVS TextureMesh, gated by
+        # --colored like the reference — PhotogrammetrieCli.cpp:228)
+        from sfm_mvs_pipeline_tpu_torch.mvs.texture import (
+            build_texture_atlas,
+            write_ply_mesh_textured,
+        )
+
+        with stage("texture"):
+            tex = build_texture_atlas(mesh["vertices"], mesh["faces"], poses, intr, rgbs)
+            write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
+                                    tex["atlas"], colors=mesh.get("colors"))
+        log(f"textured mesh: atlas {tex['atlas'].shape[0]}x{tex['atlas'].shape[1]}")
+        results["texture"] = tex
+    else:
+        with stage("mesh"):
+            write_ply_mesh(path, mesh["vertices"], mesh["faces"], colors=mesh.get("colors"))
+    log(f"mesh: {len(mesh['vertices'])} vertices, {len(mesh['faces'])} faces")
+    return mesh

@@ -4,10 +4,9 @@ Counterpart of sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py
 (`two_nn_batch_fused`, TPU kernel `_two_nn_fused_kernel`). The CUDA source
 says what bounds the kernel on the card and how its design answers that.
 
-Build (route b of the port's kernel rule): at first use the source is
-compiled with nvcc for sm_90a into sfm_mvs_pipeline_tpu_torch/build/, named
-by a hash of the source and flags so an edit rebuilds, and loaded with
-ctypes. Nothing is built or imported when this module is imported.
+Build: ops/kernels/build.py compiles the source with nvcc for sm_90a at
+first use and this module loads it with ctypes. Nothing is built or
+imported when this module is imported.
 
 Dispatch: a CPU tensor takes the plain PyTorch version
 (ops/matching.py::two_nn_batch); a CUDA tensor launches the kernel or
@@ -17,59 +16,19 @@ raises. There is no fallback from the card to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "match_kernel.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+from sfm_mvs_pipeline_tpu_torch.ops.kernels import build as _build
+
+SOURCE = "match_kernel.cu"
 
 _lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    cands.append(shutil.which("nvcc") or "")
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build K1")
-
-
 def build(verbose: bool = False) -> str:
-    """Compile the kernel library if its hash-named file is missing.
-    Returns the library path; `verbose` adds `-Xptxas -v` and prints the
-    compiler's register/shared-memory report."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libmatch_kernel_{tag}.so")
-    if os.path.exists(path) and not verbose:
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip(), flush=True)
-    os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
-    return path
+    """Compile the kernel library if missing; returns its path."""
+    return _build.build(SOURCE, verbose=verbose)[0]
 
 
 def _load():

@@ -1,11 +1,14 @@
-"""Kernel K1 (csrc/match_kernel.cu) against its plain PyTorch version on the
-card. Needs a CUDA card and nvcc; skipped elsewhere. This file imports no
-JAX, so on the card it runs alone with
+"""Kernels K1 (csrc/match_kernel.cu), K2a and K2b (csrc/sgm_kernel.cu)
+against their plain PyTorch versions on the card. Needs a CUDA card and
+nvcc; skipped elsewhere. This file imports no JAX, so on the card it runs
+alone with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
-Tolerance: 0 on integer-valued descriptors (every product and sum is exact
-in fp32), which also pins the lowest-index tie rule.
+Tolerances: 0. K1 on integer-valued descriptors (every product and sum is
+exact in fp32), which also pins the lowest-index tie rule. K2a and K2b are
+mins, adds and subtracts in the plain versions' order, so they equal the
+plain versions bit for bit, on the card and on the CPU alike.
 """
 
 import numpy as np
@@ -52,3 +55,65 @@ def test_k1_rejects_bad_operands():
         K.two_nn_batch_fused(d, v, p.long())
     with pytest.raises(ValueError):
         K.two_nn_batch_fused(d.transpose(1, 2).contiguous().transpose(1, 2), v, p)
+
+
+def _sgm_inputs(h, w, d, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random((h, w, d), dtype=np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,D", [(13, 21, 37), (40, 33, 96), (1, 50, 1), (17, 9, 256), (64, 70, 33)])
+def test_k2a_bit_equal_to_plain(H, W, D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_bidir_plain
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    v = _sgm_inputs(H, W, D, H * W + D)
+    vc = v.cuda()
+    for axis in (0, 1):
+        before = K2.sgm_bidir.launches
+        out = K2.sgm_bidir(vc, 0.03, 0.3, axis=axis)
+        torch.cuda.synchronize()
+        assert K2.sgm_bidir.launches == before + 1
+        assert torch.equal(out, sgm_bidir_plain(vc, 0.03, 0.3, axis))
+        assert torch.equal(out.cpu(), sgm_bidir_plain(v, 0.03, 0.3, axis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,D", [(13, 21, 37), (40, 33, 96), (1, 50, 1), (17, 9, 256)])
+def test_k2b_bit_equal_to_plain(H, W, D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_dir_acc_plain, staged_sum
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    v = _sgm_inputs(H, W, D, H + W * D)
+    vc = v.cuda()
+    before = K2.sgm_dir_acc.launches
+    out = K2.sgm_staged_hwd(vc, 0.03, 0.3)
+    torch.cuda.synchronize()
+    assert K2.sgm_dir_acc.launches == before + 4
+    assert torch.equal(out, staged_sum(vc, 0.03, 0.3, sgm_dir_acc_plain))
+    assert torch.equal(out.cpu(), staged_sum(v, 0.03, 0.3, sgm_dir_acc_plain))
+
+
+@pytest.mark.gpu
+def test_sgm_kernels_reject_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    v = torch.rand((8, 9, 16), device="cuda")
+    with pytest.raises(ValueError):
+        K2.sgm_bidir(v.double(), 0.03, 0.3, axis=0)
+    with pytest.raises(ValueError):
+        K2.sgm_bidir(v.transpose(0, 1), 0.03, 0.3, axis=0)
+    with pytest.raises(ValueError):
+        K2.sgm_bidir(torch.rand((4, 4, 300), device="cuda"), 0.03, 0.3, axis=0)
+    with pytest.raises(ValueError):
+        K2.sgm_dir_acc(v, torch.zeros_like(v), 0.03, 0.3, axis=1, reverse=False)  # f32 cost
+    with pytest.raises(ValueError):
+        K2.sgm_dir_acc(v.bfloat16(), torch.zeros((8, 9, 15), device="cuda"), 0.03, 0.3,
+                       axis=1, reverse=False)

@@ -105,7 +105,7 @@ def test_unported_flags_exit_nonzero(tmp_path, capsys):
     """Stages of later slices refuse with a plain message instead of doing
     something else."""
     base = ["-Prun=photogrammetrie", f"-Pimage={INSEL}", f"-Pout={tmp_path / 'o'}", "-Ploglevel=2"]
-    for extra in (["--dense"], ["-Presume=x.npz"], ["-Pfeature-detector=orb"],
+    for extra in (["--dense", "-Pdense-method=patchmatch"], ["-Pfeature-detector=orb"],
                   ["-Pfeature-matcher=flann"], ["-Pprofile=p"]):
         assert t_main(base + extra) != 0
         assert "not yet ported" in capsys.readouterr().out
