@@ -30,11 +30,25 @@ the CPU. Phases, each timed and each fatal on failure:
      with -Pfeature-limit=0 --dense --sgm --mesh --colored --stats; 12/12
      views, K2b launched, dense accuracy against the renderer's geometry
      (see phase_dense_real_size), the dense wall and its per-stage split.
+  8. K3 (the rectified PatchMatch scorer, built in phase 1) against its
+     plain PyTorch version on the card at the 1080p render's rect shape:
+     C = 6 candidate maps of (H, W) = (1080, 1920), r = 3, maxd as
+     derive_max_disp gives it for the render, random rectified images and
+     an invalid band in in_n; bit-equal costs; CUDA-event medians of kernel
+     and plain version.
+  9. the dense fast-test with PatchMatch: insel with --dense
+     -Pdense-method=patchmatch --mesh --colored --stats --artifacts; 3/3
+     views, dense cloud and mesh with points and faces, K3 launched.
+ 10. the dense real-size run with PatchMatch: phase 7's scene.npz (or, run
+     alone, a fresh SfM of the render) through -Presume= with
+     -Pdense-method=patchmatch --dense --mesh --colored --stats; 12/12
+     views, K3 launched, dense accuracy at PM_DENSE_SHARE_LIMIT, the dense
+     wall and its per-stage split.
 
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10]
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -59,7 +74,11 @@ K1_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:159"
 K2_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/sgm_kernel.cu"
 K2A_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:43"
 K2B_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:155"
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
+K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
+ALL_PHASES = set(range(1, 11))
+DENSE_PARTS = ["load + undistort", "rect sweep", "sweep", "patchmatch", "sgm", "consensus",
+               "fusion", "mesh", "refine", "texture"]
 
 
 def card_line() -> str:
@@ -406,59 +425,220 @@ def dense_accuracy(out_dir: str, gt_R, gt_C):
 DENSE_SHARE_LIMIT = 0.95
 
 
-def phase_dense_real_size(card: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
+def render_once(card: str, work: str, n_views: int, h: int, w: int, f: float):
+    """The render of phases 7 and 10 in `work`, made once: (image dir,
+    gt_R, gt_C)."""
+    from sfm_mvs_pipeline_tpu_torch.utils.synth import render_views
+
+    data = os.path.join(work, f"views_{n_views}_{w}x{h}")
+    gt_file = data + "_gt.npz"
+    if not os.path.exists(gt_file):
+        t0 = time.perf_counter()
+        _, gt_R, gt_C = render_views(data, n_views, h, w, f)
+        np.savez(gt_file, R=gt_R, C=gt_C)
+        say(card, f"rendered {n_views} views at {w}x{h} in {time.perf_counter() - t0:.1f} s")
+    gt = np.load(gt_file)
+    return data, gt["R"], gt["C"]
+
+
+def run_dense_cli(card: str, argv: list[str], log_name: str, counter, n_views: int,
+                  gt_R, gt_C, out: str, limit: float, label: str) -> int:
+    """One dense CLI run of the render under the stage timers, checked:
+    all views, points and faces, dense accuracy at `limit`, the kernel whose
+    wrapper is `counter` launched. Returns the launch count."""
+    from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+
+    counter.launches = 0
+    stage_timer.enable()
+    try:
+        rc, log, wall = run_cli(argv, log_name)
+        split = stage_timer.report()
+    finally:
+        stage_timer.enable(False)
+    launches = counter.launches
+    if rc != 0:
+        raise AssertionError(f"{label} CLI exited {rc}")
+    scene, med = check_outputs(out)
+    n_rec = int(scene.recovered.sum())
+    n_vm, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
+    share, n_pts = dense_accuracy(out, gt_R, gt_C)
+    dense_s = split.get("dense", (float("nan"), 0))[0]
+    rest = dense_s - sum(split.get(k, (0.0, 0))[0] for k in DENSE_PARTS)
+    say(card, f"{label}: {n_rec}/{n_views} views, {n_pts} dense points, "
+              f"{share:.4%} within 1% of depth of the surfaces (limit {limit:.0%}), "
+              f"mesh {n_vm} vertices {n_faces} faces, {counter.__name__} launches {launches}, "
+              f"CLI wall {wall:.2f} s")
+    say(card, f"{label} dense stage wall {dense_s:.3f} s (synchronising stage timers): "
+              + "; ".join(f"{k} {split[k][0]:.3f} s x{split[k][1]}"
+                          for k in DENSE_PARTS if k in split)
+              + f"; other {rest:.3f} s")
+    if n_rec != n_views:
+        raise AssertionError(f"{label} recovered {n_rec}/{n_views} views")
+    if n_pts <= 0 or n_faces <= 0:
+        raise AssertionError(f"{label}: {n_pts} dense points, {n_faces} faces")
+    if not share >= limit:
+        raise AssertionError(f"{label}: {share:.4%} of points on the surfaces")
+    if launches <= 0:
+        raise AssertionError(f"{label} never launched {counter.__name__}")
+    return launches
+
+
+def phase_dense_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
     """The 1080p render through the CLI's dense path (staged SGM, K2b).
 
     Accuracy: the sim(3) from the recovered cameras to the renderer's maps
     the fused cloud into the render's frame; the share of points within 1%
     of depth of the rendered surface must reach DENSE_SHARE_LIMIT (its
     comment says how it was set). The render runs at full 1920x1080 with
-    all 12 views."""
+    all 12 views. The output stays in `work` for phase 10."""
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
-    from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    out = os.path.join(work, "out-dense")
+    argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0",
+            "--dense", "--sgm", "--mesh", "--colored", "--stats"]
+    return run_dense_cli(card, argv, "chip_smoke_dense_real_size.log", K2.sgm_dir_acc, n_views,
+                         gt_R, gt_C, out, DENSE_SHARE_LIMIT, "dense real-size")
+
+
+def render_max_disp(n_views=12, h=1080, w=1920, f=1680.0) -> tuple[int, float]:
+    """(maxd, z_min) that derive_max_disp gives the render's first view
+    with its 5 nearest views as neighbours, from the renderer's cameras and
+    a depth range of the nearest surface (z = 7) padded like depth_range
+    (a quarter of the 7..10 span)."""
+    from sfm_mvs_pipeline_tpu_torch.mvs.rectified import derive_max_disp
+    from sfm_mvs_pipeline_tpu_torch.ops.pose import rotmat_to_aa
     from sfm_mvs_pipeline_tpu_torch.utils.synth import render_views
 
+    import torch
+
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data = os.path.join(tmp, "views")
-        _, gt_R, gt_C = render_views(data, n_views, h, w, f)
-        say(card, f"rendered {n_views} views at {w}x{h} in {time.perf_counter() - t0:.1f} s")
-        out = os.path.join(tmp, "out-dense")
-        argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0",
-                "--dense", "--sgm", "--mesh", "--colored", "--stats"]
-        K2.sgm_dir_acc.launches = 0
-        stage_timer.enable()
-        try:
-            rc, log, wall = run_cli(argv, "chip_smoke_dense_real_size.log")
-            split = stage_timer.report()
-        finally:
-            stage_timer.enable(False)
-        launches = K2.sgm_dir_acc.launches
+        _, gt_R, gt_C = render_views(tmp, n_views, 8, 8, f * 8 / w)  # cameras only
+    poses = np.concatenate([rotmat_to_aa(torch.from_numpy(gt_R)).numpy(),
+                            -np.einsum("sij,sj->si", gt_R, gt_C)], axis=1)
+    z_min = 7.0 - 0.25 * (10.0 - 7.0)
+    return derive_max_disp(poses[0], poses[1:6], f, z_min, w), z_min
+
+
+def phase_pm_kernel(card: str) -> dict:
+    """K3 against its plain version at the 1080p render's rect shape.
+    Tolerance 0: K3 rounds every multiply, add, divide and square root as
+    the plain version's separate torch ops do, in the same order."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import window_stats
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+
+    C, H, W, r = 6, 1080, 1920, 3
+    maxd, z_min = render_max_disp()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda", dtype=torch.float32)
+
+    ref, nbr = rand(H, W), rand(H, W)
+    in_n = rand(H, W) > 0.02
+    in_n[:, :40] = False  # the rectified neighbour's invalid left band
+    in_n[500:520, 900:1300] = False
+    r_mean, r_var = window_stats(ref, r)
+    cands_rand = rand(C, H, W) * maxd  # the random init: every disparity in [0, maxd]
+    # a converged state: a smooth disparity field per candidate
+    xs = torch.arange(W, device="cuda", dtype=torch.float32)
+    cands_smooth = (200.0 + 100.0 * torch.sin(xs / 300.0))[None, None] + 0.5 * rand(C, H, W)
+    args = (ref, nbr, in_n, r_mean, r_var)
+    res = {}
+    for name, cands in (("random", cands_rand), ("smooth", cands_smooth)):
+        def kern():
+            return K3.pm_score_rect(cands, *args, maxd=maxd, window_radius=r)
+
+        def plain():
+            return pm_score_rect_plain(cands, *args, maxd=maxd, window_radius=r)
+
+        ok, op = kern(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(ok).all()):
+            raise AssertionError("K3 output has non-finite values")
+        err = float((ok - op).abs().max())
+        if not torch.equal(ok, op):
+            n = int((ok != op).sum())
+            raise AssertionError(f"K3 differs from its plain version at {n} entries "
+                                 f"(max abs err {err})")
+        n_one = int((ok == 1).sum())
+        del ok, op
+        ms_p1 = timed(plain, reps=3)
+        ms_k1 = timed(kern, reps=5)
+        ms_k2 = timed(kern, reps=5)
+        ms_p2 = timed(plain, reps=3)
+        ms_k = float(np.median([ms_k1, ms_k2]))
+        ms_p = float(np.median([ms_p1, ms_p2]))
+        say(card, f"K3 bit-equal to plain at C={C} (H, W) = ({H}, {W}) r={r} maxd={maxd} "
+                  f"(derive_max_disp, z_min {z_min}), {name} candidates (max abs err {err}, "
+                  f"{n_one} costs at 1); kernel {ms_k1:.3f}/{ms_k2:.3f} ms (median of 5), "
+                  f"plain {ms_p1:.3f}/{ms_p2:.3f} ms (median of 3)")
+        res[name] = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    return res["random"]
+
+
+# Limit of phase 10: the port's CPU rehearsal of this phase, on the render
+# cut to 480x270 (f = 420), recovered 12/12 views and put 0.9793 of its
+# 207,602 fused points within 1% of depth of the surfaces (rectified
+# PatchMatch, as on the card). The JAX package's CLI on the CPU, resumed
+# from the same scene, takes its warp-based PatchMatch and got 0.9335 of
+# 251,544. The limit sits below both, for the full size (4x the disparity
+# range for the same 8 iterations of propagation) and the card's draws,
+# and is not below 0.9.
+PM_DENSE_SHARE_LIMIT = 0.9
+
+
+def phase_pm_fast_test(card: str) -> int:
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out-pm-fast-test")
+        argv = ["-Prun=photogrammetrie", f"-Pimage={os.path.join(ROOT, 'sample_data', 'insel')}",
+                f"-Pout={out}", "--dense", "-Pdense-method=patchmatch", "--mesh", "--colored",
+                "--stats", "--artifacts"]
+        K3.pm_score_rect.launches = 0
+        rc, log, wall = run_cli(argv, "chip_smoke_pm_fast_test.log")
+        launches = K3.pm_score_rect.launches
         if rc != 0:
-            raise AssertionError(f"dense real-size CLI exited {rc}")
+            raise AssertionError(f"PatchMatch fast-test CLI exited {rc}")
         scene, med = check_outputs(out)
         n_rec = int(scene.recovered.sum())
+        n_pts, _ = ply_counts(os.path.join(out, "pointcloud_dense.ply"))
         n_vm, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
-        share, n_pts = dense_accuracy(out, gt_R, gt_C)
-        dense_s = split.get("dense", (float("nan"), 0))[0]
-        parts = ["load + undistort", "rect sweep", "sweep", "sgm", "consensus", "fusion", "mesh",
-                 "refine", "texture"]
-        rest = dense_s - sum(split.get(k, (0.0, 0))[0] for k in parts)
-        say(card, f"dense real-size: {n_rec}/{n_views} views, {n_pts} dense points, "
-                  f"{share:.4%} within 1% of depth of the surfaces (limit {DENSE_SHARE_LIMIT:.0%}), "
-                  f"mesh {n_vm} vertices {n_faces} faces, K2b launches {launches}, "
-                  f"CLI wall {wall:.2f} s")
-        say(card, f"dense stage wall {dense_s:.3f} s (synchronising stage timers): "
-                  + "; ".join(f"{k} {split[k][0]:.3f} s x{split[k][1]}" for k in parts if k in split)
-                  + f"; other {rest:.3f} s")
-        if n_rec != n_views:
-            raise AssertionError(f"dense real-size recovered {n_rec}/{n_views} views")
+        rect_pm = log.count("(rect-PM)")
+        say(card, f"PatchMatch fast-test: rc 0, {n_rec}/{scene.n_shots} views ({rect_pm} by "
+                  f"rect-PM), {n_pts} dense points, mesh {n_vm} vertices {n_faces} faces, "
+                  f"K3 launches {launches}, wall {wall:.2f} s")
+        if n_rec != 3 or scene.n_shots != 3:
+            raise AssertionError(f"PatchMatch fast-test recovered {n_rec}/3 views")
         if n_pts <= 0 or n_faces <= 0:
-            raise AssertionError(f"dense real-size: {n_pts} dense points, {n_faces} faces")
-        if not share >= DENSE_SHARE_LIMIT:
-            raise AssertionError(f"dense real-size: {share:.4%} of points on the surfaces")
+            raise AssertionError(f"PatchMatch fast-test: {n_pts} dense points, {n_faces} faces")
         if launches <= 0:
-            raise AssertionError("dense real-size never launched K2b")
+            raise AssertionError("PatchMatch fast-test never launched K3")
+    return launches
+
+
+def phase_pm_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
+    """The 1080p render through -Pdense-method=patchmatch (K3), resumed from
+    phase 7's scene.npz when phase 7 ran, else from images; the checks of
+    phase 7 at PM_DENSE_SHARE_LIMIT."""
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    scene_npz = os.path.join(work, "out-dense", "scene.npz")
+    out = os.path.join(work, "out-pm")
+    src = [f"-Presume={scene_npz}"] if os.path.exists(scene_npz) else [
+        f"-Pimage={data}", "-Pfeature-limit=0"]
+    argv = ["-Prun=photogrammetrie", *src, f"-Pout={out}", "-Pdense-method=patchmatch",
+            "--dense", "--mesh", "--colored", "--stats"]
+    launches = run_dense_cli(card, argv, "chip_smoke_pm_real_size.log", K3.pm_score_rect,
+                             n_views, gt_R, gt_C, out, PM_DENSE_SHARE_LIMIT,
+                             "PatchMatch real-size")
+    say(card, f"PatchMatch real-size: K3 launches {launches} "
+              f"({launches / (5 * n_views):.2f} per pair, 5 neighbours per view)")
     return launches
 
 
@@ -475,18 +655,28 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     card = card_line()
     print(card, flush=True)
-    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, sgm_kernel
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
 
     say(card, f"torch {torch.__version__} cuda {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build.build(match_kernel.SOURCE, sgm_kernel.SOURCE, verbose=True)
-    say(card, f"phase 1: K1, K2a and K2b built in {time.perf_counter() - t0:.2f} s")
+    build.build(match_kernel.SOURCE, sgm_kernel.SOURCE, pm_kernel.SOURCE, verbose=True)
+    say(card, f"phase 1: K1, K2a, K2b and K3 built in {time.perf_counter() - t0:.2f} s")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(card, phases, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(card: str, phases: set, work: str) -> int:
+    import torch
 
     entry = {"name": "two_nn_batch_fused", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES}
     k2a = {"name": "sgm_bidir", "route": "cuda", "source": K2_SOURCE, "replaces": K2A_REPLACES}
     k2b = {"name": "sgm_dir_acc", "route": "cuda", "source": K2_SOURCE, "replaces": K2B_REPLACES}
+    k3 = {"name": "pm_score_rect", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES}
     if 2 in phases:
         t0 = time.perf_counter()
         entry.update(phase_kernel(card))
@@ -511,12 +701,24 @@ def main() -> int:
         say(card, f"phase 6: {time.perf_counter() - t0:.2f} s")
     if 7 in phases:
         t0 = time.perf_counter()
-        k2b["launches"] = phase_dense_real_size(card)
+        k2b["launches"] = phase_dense_real_size(card, work)
         say(card, f"phase 7: {time.perf_counter() - t0:.2f} s")
+    if 8 in phases:
+        t0 = time.perf_counter()
+        k3.update(phase_pm_kernel(card))
+        say(card, f"phase 8: {time.perf_counter() - t0:.2f} s")
+    if 9 in phases:
+        t0 = time.perf_counter()
+        phase_pm_fast_test(card)
+        say(card, f"phase 9: {time.perf_counter() - t0:.2f} s")
+    if 10 in phases:
+        t0 = time.perf_counter()
+        k3["launches"] = phase_pm_real_size(card, work)
+        say(card, f"phase 10: {time.perf_counter() - t0:.2f} s")
     if phases != ALL_PHASES:
         print(f"partial run (phases {sorted(phases)}): no result line", flush=True)
         return 3
-    print(json.dumps({"kernels": [entry, k2a, k2b]}), flush=True)
+    print(json.dumps({"kernels": [entry, k2a, k2b, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

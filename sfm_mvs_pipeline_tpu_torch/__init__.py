@@ -1,10 +1,14 @@
 """sfm_mvs_pipeline_tpu_torch — the PyTorch + CUDA port of sfm_mvs_pipeline_tpu.
 
-The same Structure-from-Motion pipeline (SIFT -> brute-force 2-NN matching
--> incremental pose recovery -> triangulation -> bundle adjustment) with the
-same module layout, flags and artifacts as the JAX package beside it. Plain
-tensor code is PyTorch; the hot kernel (the batched 2-NN matcher) is a CUDA
-C++ kernel for Hopper (csrc/match_kernel.cu), built at first use.
+The same photogrammetry pipeline (SIFT -> brute-force 2-NN matching ->
+incremental pose recovery -> triangulation -> bundle adjustment, then dense
+MVS with the rect, sweep or PatchMatch engine and optional SGM -> fusion ->
+meshing -> texturing) with the same module layout, flags and artifacts as
+the JAX package beside it. Plain tensor code is PyTorch; every kernel the
+JAX package wrote in Pallas for its main paths is a CUDA C++ kernel for
+Hopper under csrc/, built at first use: K1 the batched 2-NN matcher
+(match_kernel.cu), K2a/K2b SGM aggregation (sgm_kernel.cu) and K3 the
+rectified PatchMatch scorer (pm_kernel.cu).
 
 This package imports neither jax nor sfm_mvs_pipeline_tpu.
 """

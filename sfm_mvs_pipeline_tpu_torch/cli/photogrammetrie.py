@@ -4,9 +4,10 @@ Port of sfm_mvs_pipeline_tpu/cli/photogrammetrie.py, after
 PhotogrammetrieCli (ref: src/cli/PhotogrammetrieCli.cpp:45-247): workdir
 prep -> stats sampler -> SIFT -> scene -> SfM -> PLYs, stats, artifacts and
 the scene.npz checkpoint -> dense MVS (--dense), or dense MVS resumed from a
-checkpoint (-Presume=). The flags are the JAX package's; the ones whose
-stages are not ported yet (-Pdense-method=patchmatch without --sgm, ORB,
-FLANN, -Pprofile=) exit non-zero with a "not yet ported" message.
+checkpoint (-Presume=). The flags are the JAX package's, every dense method
+included (-Pdense-method=rect|sweep|patchmatch); the ones whose stages are
+not ported yet (ORB, FLANN, -Pprofile=) exit non-zero with a "not yet
+ported" message.
 
 Work runs on the card when one is present, else on the CPU.
 """
@@ -56,9 +57,12 @@ def print_usage() -> None:
                                      mesh, like the reference's TextureMesh)
   --dense                            run dense MVS
   --sgm                              SGM aggregation of the depth cost volumes
-  -Pdense-method=rect|sweep          depth-map algorithm (default rect =
+  -Pdense-method=rect|sweep|patchmatch  depth-map algorithm (default rect =
                                      rectified disparity sweep; sweep = joint
-                                     plane-sweep volume)
+                                     plane-sweep volume; patchmatch =
+                                     checkerboard PatchMatch, the reference's
+                                     openMVS default; with --sgm it runs the
+                                     sweep with SGM)
   --mesh                             mesh the dense cloud
   --no-decimate                      skip mesh decimation
   --refine-mesh                      photometric mesh refinement (may also
@@ -68,8 +72,8 @@ def print_usage() -> None:
                                      depth maps)
   --help
 
-Not yet ported (exit non-zero): -Pdense-method=patchmatch (without --sgm),
--Pprofile=, -Pfeature-detector=orb, -Pfeature-matcher=flann."""
+Not yet ported (exit non-zero): -Pprofile=, -Pfeature-detector=orb,
+-Pfeature-matcher=flann."""
     )
 
 
@@ -82,9 +86,6 @@ def prepare_working_dir(path: str) -> None:
 
 def _not_ported(args: AppArgs) -> str | None:
     """The first requested feature this port does not have yet, if any."""
-    # as in the JAX package, patchmatch with --sgm runs the sweep with SGM
-    if args.is_flag("dense") and _dense_method(args) == "patchmatch" and not args.is_flag("sgm"):
-        return "-Pdense-method=patchmatch"
     if args.get("profile"):
         return "-Pprofile="
     if args.get("feature-detector", "sift").lower() == "orb":

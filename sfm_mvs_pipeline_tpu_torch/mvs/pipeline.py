@@ -6,14 +6,16 @@ exporter's undistorted-image handoff (ref: OpenMvsUtils.cpp:136-152):
   * resolution ladder: max 3200 (ref: MVS.h:60-61), never upsampled
   * 5 neighbor views (ref: MVS.h:58)
   * 3-view fusion inliers (ref: MVS.h:62)
-  * depth engines `rect` (default) and `sweep`, SGM with --sgm
-    (ref: MVS.cpp:112-120)
+  * depth engines `rect` (default), `sweep` and `patchmatch`, SGM with
+    --sgm (ref: MVS.cpp:112-120)
   * meshing + cleanup + optional refine/texture (ref: MVS.cpp:130-181)
 
 One device: the view-sharded branch of the JAX package (parallel/mvs.py)
-is not ported, nor is PatchMatch (`method="patchmatch"` without --sgm
-raises). As in the JAX package, `patchmatch` with --sgm runs the sweep
-engine with SGM.
+is not ported. `patchmatch` runs classic PatchMatch in the rectified frame
+of each pair (kernel K3) on every device, where the JAX package does so on
+its TPU only; views whose every neighbour fails the rectification geometry
+gate take the warp-based PatchMatch, seeded from the rectified sweep. As in
+the JAX package, `patchmatch` with --sgm runs the sweep engine with SGM.
 """
 
 from __future__ import annotations
@@ -42,8 +44,15 @@ class MVSConfig:
     # depth-map method:
     #   "rect"       rectified pairwise disparity sweep (mvs/rectified.py)
     #   "sweep"      joint plane-sweep cost volume (mvs/plane_sweep.py)
-    #   "patchmatch" not yet ported (runs the sweep when use_sgm is set)
+    #   "patchmatch" checkerboard PatchMatch (mvs/patchmatch.py), the
+    #                reference's openMVS default (the sweep with SGM when
+    #                use_sgm is set)
     method: str = "rect"
+    pm_iterations: int = 8
+    # the warp-based PatchMatch (geometry-degenerate views) starts from the
+    # rectified sweep's depth and runs pm_iterations//4 (at least 2)
+    # iterations; False gives it the classic random init and pm_iterations
+    pm_seed_rect: bool = True
     mesh: bool = False
     decimate: bool = True
     refine_mesh: bool = False
@@ -105,9 +114,6 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
     cfg = cfg or MVSConfig()
     if cfg.method not in ("rect", "sweep", "patchmatch"):
         raise ValueError(f"unknown dense method {cfg.method!r}")
-    if cfg.method == "patchmatch" and not cfg.use_sgm:
-        raise NotImplementedError(
-            "-Pdense-method=patchmatch is not yet ported to sfm_mvs_pipeline_tpu_torch")
     dev = default_device()
     rec = [int(s) for s in np.nonzero(scene.recovered)[0]]
     if len(rec) < 2:
@@ -128,7 +134,8 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
     intr_pinhole = intr.copy()
     intr_pinhole[3:] = 0.0  # images get undistorted below
 
-    method = "SGM" if cfg.use_sgm else {"sweep": "plane-sweep"}.get(cfg.method, "rectified-sweep")
+    method = "SGM" if cfg.use_sgm else {
+        "patchmatch": "PatchMatch", "sweep": "plane-sweep"}.get(cfg.method, "rectified-sweep")
     log(f"densifying {len(rec)} views at {w}x{h} ({method}, {cfg.n_planes} planes)")
 
     with stage("load + undistort"):
@@ -183,7 +190,12 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             log(f"view {s}: no neighbors, skipped")
             continue
         z_lo, z_hi = depth_range(scene, s)
-        if cfg.method == "rect" and i not in rect_fallback:
+        tag = ""
+        if cfg.method == "patchmatch" and not cfg.use_sgm:
+            depth, cost, valid, tag = _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d,
+                                                       intr_d, float(intr_pinhole[0]), z_lo,
+                                                       z_hi, w)
+        elif cfg.method == "rect" and i not in rect_fallback:
             # --sgm composes with the rectified engine: 4-path aggregation
             # on the per-pair rectified disparity volume
             cap = cfg.n_neighbors
@@ -211,7 +223,7 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
         depth_maps[i] = depth.cpu().numpy()
         valids[i] = valid.cpu().numpy()
         log(f"view {s}: depth range [{z_lo:.2f}, {z_hi:.2f}], "
-            f"{int(valids[i].sum())}/{h*w} valid px")
+            f"{int(valids[i].sum())}/{h*w} valid px{tag}")
         if cfg.keep_artifacts:
             np.save(os.path.join(out_dir, f"depth_{s:04d}.npy"), depth_maps[i])
 
@@ -232,6 +244,55 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
         results["mesh"] = _mesh(cfg, out_dir, depth_maps, valids, poses,
                                 intr_pinhole.astype(np.float32), rgbs, grays, log, results)
     return results
+
+
+def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo, z_hi, w):
+    """PatchMatch depth of view `i` (its index in the recovered views):
+    rectified PatchMatch (K3) when a neighbour passes the rectification
+    geometry gate, else the warp-based PatchMatch seeded from the rectified
+    sweep. The view's generator is seeded with i, as the JAX package folds
+    i into PRNGKey(0). Returns (depth, cost, valid, log tag)."""
+    from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import patchmatch_depth, patchmatch_rect_depth
+    from sfm_mvs_pipeline_tpu_torch.mvs.rectified import (
+        derive_max_disp,
+        rect_geometry_ok,
+        rectified_depth,
+    )
+
+    # fixed neighbour capacity, as in the JAX package
+    cap = cfg.n_neighbors
+    nb = (nbrs + [nbrs[0]] * cap)[:cap]
+    nb_ok = np.zeros(cap, bool)
+    nb_ok[: min(len(nbrs), cap)] = True
+    geo_ok = rect_geometry_ok(poses[i], poses[nb]) & nb_ok
+    md = derive_max_disp(poses[i], poses[nb], focal, float(z_lo), w)
+    gen = torch.Generator(device=grays_d.device).manual_seed(i)
+    if geo_ok.any():
+        depth, cost, valid = patchmatch_rect_depth(
+            grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi, gen,
+            iterations=cfg.pm_iterations, window_radius=cfg.window_radius,
+            max_cost=cfg.max_cost, max_disp=md, nbr_valid=geo_ok)
+        return depth, cost, valid, " (rect-PM)"
+    seed_d = seed_v = None
+    iters = cfg.pm_iterations
+    if cfg.pm_seed_rect:
+        # the host gate is stricter (0.31) than the engine's (0.3), so a pair
+        # may still seed; a pair that fails the engine's gate seeds nothing
+        # and is skipped (its rectification is singular when the baseline
+        # lies on the optical axis, and torch refuses to invert it)
+        seed_ok = rect_geometry_ok(poses[i], poses[nb], min_sin=0.3) & nb_ok
+        if seed_ok.any():
+            seed_d, _, seed_v = rectified_depth(
+                grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi,
+                n_levels=cfg.n_planes, window_radius=cfg.window_radius, max_cost=cfg.max_cost,
+                max_disp=md, nbr_valid=seed_ok)
+        iters = max(2, cfg.pm_iterations // 4)
+    with stage("patchmatch"):
+        depth, cost, valid = patchmatch_depth(
+            grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi, gen,
+            init_depth=seed_d, init_valid=seed_v, iterations=iters,
+            window_radius=cfg.window_radius, max_cost=cfg.max_cost, nbr_valid=nb_ok)
+    return depth, cost, valid, ""
 
 
 def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, results):

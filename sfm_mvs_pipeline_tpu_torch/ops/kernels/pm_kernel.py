@@ -1,0 +1,106 @@
+"""K3, the rectified PatchMatch scoring kernel: wrapper around csrc/pm_kernel.cu.
+
+Counterpart of sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py::pm_score_rect
+(TPU kernel `_pm_score_kernel`): per pixel and candidate disparity, ZNCC
+over a (2r+1)^2 window, bilinear in x, in the rectified frame of one
+(ref, neighbour) pair. mvs/patchmatch.py::_pm_rect_pair calls it once for
+the random init (C = 1) and once per half-iteration (C = 6). The CUDA source
+says what bounds the kernel on the card and how the design answers that.
+The JAX package's x-strips for images wider than 1024 are a TPU layout
+device and are not ported: the kernel takes any width.
+
+Build: ops/kernels/build.py compiles the source with nvcc for sm_90a at
+first use and this module loads it with ctypes.
+
+Dispatch: a CPU tensor takes the plain PyTorch version
+(mvs/patchmatch.py::pm_score_rect_plain); a CUDA tensor launches the kernel
+or raises. There is no fallback from the card to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sfm_mvs_pipeline_tpu_torch.ops.kernels import build as _build
+
+SOURCE = "pm_kernel.cu"
+MAX_R = 4  # window radii compiled into the kernel: 1..4
+
+_lib = None
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernel library if missing; returns its path."""
+    return _build.build(SOURCE, verbose=verbose)[0]
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.pm_score_rect_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.pm_score_rect_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(cands, maps: dict, window_radius: int, maxd: int) -> None:
+    dev = cands.device
+    if dev.type != "cuda":
+        raise ValueError(f"K3 runs on CUDA or CPU tensors, not {dev}")
+    if cands.dim() != 3 or cands.dtype != torch.float32 or not cands.is_contiguous():
+        raise ValueError(f"K3 takes contiguous (C, H, W) float32 candidates, got "
+                         f"{tuple(cands.shape)} {cands.dtype}")
+    hw = tuple(cands.shape[1:])
+    for name, (t, dtype) in maps.items():
+        if (t.device != dev or tuple(t.shape) != hw or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"K3 takes {name} as a contiguous {hw} {dtype} tensor on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not 1 <= window_radius <= MAX_R:
+        raise ValueError(f"K3 takes 1 <= window_radius <= {MAX_R}, got {window_radius}")
+    if maxd < 0:
+        raise ValueError(f"maxd must be >= 0, got {maxd}")
+    if hw[0] > 65535:
+        raise ValueError(f"K3 takes H <= 65535, got {hw[0]}")
+
+
+def pm_score_rect(
+    cands: torch.Tensor,  # (C, H, W) candidate disparity maps (>= 0)
+    ref_rect: torch.Tensor,  # (H, W) rectified ref image
+    nbr_rect: torch.Tensor,  # (H, W) rectified neighbour
+    in_n: torch.Tensor,  # (H, W) bool neighbour validity
+    r_mean: torch.Tensor,  # (H, W) ref window mean
+    r_var: torch.Tensor,  # (H, W) ref window variance
+    maxd: int,
+    window_radius: int = 3,
+) -> torch.Tensor:
+    """K3: costs (C, H, W) float32 of C disparity candidate maps; the
+    semantics are pm_score_rect_plain's (mvs/patchmatch.py)."""
+    if cands.device.type == "cpu":
+        from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
+
+        return pm_score_rect_plain(cands, ref_rect, nbr_rect, in_n, r_mean, r_var, maxd,
+                                   window_radius)
+    f32 = torch.float32
+    _check(cands, {"ref_rect": (ref_rect, f32), "nbr_rect": (nbr_rect, f32),
+                   "in_n": (in_n, torch.bool), "r_mean": (r_mean, f32), "r_var": (r_var, f32)},
+           window_radius, maxd)
+    c, h, w = cands.shape
+    out = torch.empty_like(cands)
+    lib = _load()
+    with torch.cuda.device(cands.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pm_score_rect_launch(
+            cands.data_ptr(), ref_rect.data_ptr(), nbr_rect.data_ptr(), in_n.data_ptr(),
+            r_mean.data_ptr(), r_var.data_ptr(), out.data_ptr(), c, h, w, window_radius, stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {err}")
+    pm_score_rect.launches += 1
+    return out
+
+
+pm_score_rect.launches = 0

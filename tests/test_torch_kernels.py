@@ -1,5 +1,5 @@
-"""Kernels K1 (csrc/match_kernel.cu), K2a and K2b (csrc/sgm_kernel.cu)
-against their plain PyTorch versions on the card. Needs a CUDA card and
+"""Kernels K1 (csrc/match_kernel.cu), K2a and K2b (csrc/sgm_kernel.cu) and
+K3 (csrc/pm_kernel.cu) against their plain PyTorch versions on the card. Needs a CUDA card and
 nvcc; skipped elsewhere. This file imports no JAX, so on the card it runs
 alone with
 
@@ -8,7 +8,12 @@ alone with
 Tolerances: 0. K1 on integer-valued descriptors (every product and sum is
 exact in fp32), which also pins the lowest-index tie rule. K2a and K2b are
 mins, adds and subtracts in the plain versions' order, so they equal the
-plain versions bit for bit, on the card and on the CPU alike.
+plain versions bit for bit, on the card and on the CPU alike. K3 rounds
+every multiply, add, divide and square root on its own, in the plain
+version's order, so it equals the plain version on the card bit for bit;
+the plain version on the CPU differs from both by one ulp at a few
+entries (6e-8 measured on an H100 host), so that comparison is held to
+atol 1e-6.
 """
 
 import numpy as np
@@ -117,3 +122,59 @@ def test_sgm_kernels_reject_bad_operands():
     with pytest.raises(ValueError):
         K2.sgm_dir_acc(v.bfloat16(), torch.zeros((8, 9, 15), device="cuda"), 0.03, 0.3,
                        axis=1, reverse=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H,W,r,maxd", [(6, 37, 300, 3, 256), (1, 20, 129, 2, 140),
+                                          (3, 9, 64, 1, 64), (2, 16, 50, 4, 60)])
+def test_k3_bit_equal_to_plain(C, H, W, r, maxd):
+    """Random candidates over [0, maxd] (taps left of the image read 0),
+    some integral (frac = 0) and some past maxd, an invalid band and a
+    random scatter of invalid pixels in in_n."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import window_stats
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+
+    rng = np.random.default_rng(C * 1000 + W + r)
+    ref, nbr = rng.random((2, H, W), dtype=np.float32)
+    in_n = rng.random((H, W)) > 0.05
+    in_n[:, : W // 10] = False
+    cands = (rng.random((C, H, W)) * maxd).astype(np.float32)
+    cands[0, :, :5] = np.floor(cands[0, :, :5])
+    cands[-1, 0] = maxd + 7.5
+    ref_t = torch.from_numpy(ref)
+    r_mean, r_var = window_stats(ref_t, r)
+    cpu = [torch.from_numpy(cands), ref_t, torch.from_numpy(nbr), torch.from_numpy(in_n),
+           r_mean.contiguous(), r_var.contiguous()]
+    dev = [x.cuda() for x in cpu]
+    before = K3.pm_score_rect.launches
+    out = K3.pm_score_rect(*dev, maxd=maxd, window_radius=r)
+    torch.cuda.synchronize()
+    assert K3.pm_score_rect.launches == before + 1
+    assert out.shape == (C, H, W) and torch.isfinite(out).all()
+    assert torch.equal(out, pm_score_rect_plain(*dev, maxd=maxd, window_radius=r))
+    torch.testing.assert_close(out.cpu(), pm_score_rect_plain(*cpu, maxd=maxd, window_radius=r),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_k3_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+
+    c = torch.rand((2, 8, 16), device="cuda")
+    m = torch.rand((8, 16), device="cuda")
+    ok = torch.ones((8, 16), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        K3.pm_score_rect(c.double(), m, m, ok, m, m, maxd=16)
+    with pytest.raises(ValueError):
+        K3.pm_score_rect(c, m, m, ok.float(), m, m, maxd=16)
+    with pytest.raises(ValueError):
+        K3.pm_score_rect(c, m, m.t().contiguous().t(), ok, m, m, maxd=16)
+    with pytest.raises(ValueError):
+        K3.pm_score_rect(c, m, m, ok, m, m, maxd=16, window_radius=5)
+    with pytest.raises(ValueError):
+        K3.pm_score_rect(c, m, m, ok, m.cpu(), m, maxd=16)

@@ -105,8 +105,7 @@ def test_unported_flags_exit_nonzero(tmp_path, capsys):
     """Stages of later slices refuse with a plain message instead of doing
     something else."""
     base = ["-Prun=photogrammetrie", f"-Pimage={INSEL}", f"-Pout={tmp_path / 'o'}", "-Ploglevel=2"]
-    for extra in (["--dense", "-Pdense-method=patchmatch"], ["-Pfeature-detector=orb"],
-                  ["-Pfeature-matcher=flann"], ["-Pprofile=p"]):
+    for extra in (["-Pfeature-detector=orb"], ["-Pfeature-matcher=flann"], ["-Pprofile=p"]):
         assert t_main(base + extra) != 0
         assert "not yet ported" in capsys.readouterr().out
     assert t_main(["-Prun=pcl-stats"]) != 0
