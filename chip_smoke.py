@@ -3,9 +3,11 @@
 Needs one CUDA card; exits non-zero without one, and never falls back to
 the CPU. Phases, each timed and each fatal on failure:
 
-  1. device + build: builds kernel K1 (the batched 2-NN matcher) and the
-     SGM kernels K2a and K2b from sfm_mvs_pipeline_tpu_torch/csrc/, one
-     nvcc process per source, started together; prints the ptxas reports.
+  1. device + build: builds kernels K1 (the batched 2-NN matcher), K1x
+     (its exact mode on the tensor cores), K2a and K2b (SGM) and K3
+     (PatchMatch scoring) from sfm_mvs_pipeline_tpu_torch/csrc/, one nvcc
+     process per source, started together, and the native C++ host tier
+     with g++ beside them; prints the ptxas reports.
   2. K1 against its plain PyTorch version on the card at the main path's
      shape (12 shots x 8192 features x 128 dims, all 66 unordered pairs):
      bit-equal idx / best^2 / second^2 and equal ratio-test masks; CUDA-event
@@ -44,11 +46,34 @@ the CPU. Phases, each timed and each fatal on failure:
      -Pdense-method=patchmatch --dense --mesh --colored --stats; 12/12
      views, K3 launched, dense accuracy at PM_DENSE_SHARE_LIMIT, the dense
      wall and its per-stage split.
+ 11. K1x against its plain PyTorch version at phase 2's shape: (a) integer
+     descriptors with ties, bit-equal to the plain version and to K1; (b)
+     continuous descriptors within 1e-5 (|q|^2 + |t|^2) (see
+     phase_exact_kernel); CUDA-event medians of K1x, its plain version and
+     K1, and K1x's share of its bound.
+ 12. insel through run-scripts/run-orb-unordered-flann.sh's flags (ORB,
+     FLANN, --dense --mesh --colored --stats --artifacts), then
+     -Prun=pcl-stats on its three clouds as run-pcl-stats.sh does; 3/3
+     views, K1 launched once at D = 256, every pcl-stats output non-empty,
+     native tier.
+ 13. the 1080p render with ORB at full image size (-Pfeature-detector=ORB
+     -Pfeature-limit=0, capacity 65,536), sparse; 12/12 views, the ORB
+     limits (ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG), median reprojection < 1 px,
+     K1 launched once at (12, 65536, 256), then timed alone on the run's
+     descriptors; then the SfM with five more seeds on the run's features,
+     each 12/12 within the ATE and rotation limits.
+ 14. -Pmatch-precision=exact on the 1080p render; phase 4's limits, K1x
+     launched once and K1 not at all; on the run's SIFT descriptors K1x
+     against its plain version within 1e-5 (|q|^2 + |t|^2) and against K1
+     within the bf16 split's error bound, and the exact and fast (idx, mask)
+     tables equal wherever that tolerance decides them.
 
-Prints the card's name and power limit, one JSON line with the kernel
-table, and as its last line {"ok": true, "device": {...}}.
+Phases 7, 10, 13 and 14 share one render in a temporary work dir. Prints
+the card's name and power limit, one JSON line with the kernel table, and
+as its last line {"ok": true, "device": {...}}. A run of some phases only
+prints no result line and exits 4.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10]
+Usage: python3 chip_smoke.py [--phases 1,2,...,14]
 """
 
 from __future__ import annotations
@@ -63,6 +88,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -76,7 +102,12 @@ K2A_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:43"
 K2B_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:155"
 K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
 K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
-ALL_PHASES = set(range(1, 11))
+K1X_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_exact_kernel.cu"
+K1X_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:88"
+ALL_PHASES = set(range(1, 15))
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"fp32": 67e12, "bf16": 989e12}
 DENSE_PARTS = ["load + undistort", "rect sweep", "sweep", "patchmatch", "sgm", "consensus",
                "fusion", "mesh", "refine", "texture"]
 
@@ -142,6 +173,35 @@ def timed(fn, reps=5) -> float:
     return float(np.median(ts))
 
 
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOP_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def match_bound(S: int, F: int, D: int, P: int, kind: str, terms: int) -> dict:
+    """Bound of a 2-NN over P pairs of S shots of F features: `terms`
+    products of 2 F^2 D flops a pair; bytes of the descriptors, validity
+    and pair table in and three (P, F) outputs."""
+    nbytes = S * F * D * 4 + S * F + P * 8 + 3 * P * F * 4
+    return bound(nbytes, terms * 2.0 * F * F * D * P, kind)
+
+
+def int_descriptors_with_ties(S: int, F: int, D: int, seed: int = 0):
+    """Integer descriptors in 0..255 (exact in fp32 sums) with duplicated
+    target rows, so distances tie exactly, and ~5% invalid slots."""
+    rng = np.random.default_rng(seed)
+    desc = rng.integers(0, 256, size=(S, F, D)).astype(np.float32)
+    for s in range(S):
+        src = rng.integers(0, F, size=F // 16)
+        dst = rng.integers(0, F, size=F // 16)
+        desc[s, dst] = desc[s, src]
+    return desc, rng.random((S, F)) > 0.05
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
@@ -149,14 +209,7 @@ def phase_kernel(card: str) -> dict:
     from sfm_mvs_pipeline_tpu_torch.ops.matching import ratio_test_mask, two_nn_batch
 
     S, F, D = 12, 8192, 128
-    rng = np.random.default_rng(0)
-    desc = rng.integers(0, 256, size=(S, F, D)).astype(np.float32)
-    # duplicated target rows: exact distance ties for the tie rule
-    for s in range(S):
-        src = rng.integers(0, F, size=F // 16)
-        dst = rng.integers(0, F, size=F // 16)
-        desc[s, dst] = desc[s, src]
-    valid = rng.random((S, F)) > 0.05
+    desc, valid = int_descriptors_with_ties(S, F, D)
     pairs = np.array([(a, b) for a in range(S) for b in range(a + 1, S)], np.int32)
     dev = torch.device("cuda")
     d_t = torch.from_numpy(desc).to(dev)
@@ -197,7 +250,131 @@ def phase_kernel(card: str) -> dict:
     say(card, f"K1 {ms_k1:.3f}/{ms_k2:.3f} ms, plain {ms_p1:.3f}/{ms_p2:.3f} ms "
               f"(median of 5 each); K1 {P / ms_k * 1e3:.1f} pairs/s "
               f"{gflop / ms_k:.2f} TFLOP/s, plain {P / ms_p * 1e3:.1f} pairs/s")
-    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, **match_bound(S, F, D, P, "fp32", 1)}
+
+
+# K1x against K1 (or any exact dot product): the bf16 split leaves each
+# operand's remainder after hi + lo (<= 2^-16 relative) and drops
+# q2_lo.t_lo (<= 2^-16 |q2_i t_i|), three terms of <= 2^-16 |q2_i t_i| a
+# product, so |d dot| <= 3 2^-16 |q2| |t| <= 3 2^-16 (|q|^2 + |t|^2) =
+# 4.58e-5 of it, and 5e-5 covers the fp32 sums on top.
+SPLIT_REL_TOL = 5e-5
+
+
+def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-5) -> dict:
+    """Hold K1x's (idx, best^2, second^2) against another 2-NN of the same
+    float descriptors: every |best^2 - ref| <= rel_tol (|q|^2 + |t_best|^2)
+    and every |second^2 - ref| <= rel_tol (|q|^2 + max |t|^2 of the target
+    shot). Against its plain version rel_tol is 1e-5: the split's products
+    are exact in fp32 on both sides and only the order and rounding of the
+    fp32 sums differ. Against K1 it is SPLIT_REL_TOL. idx must be equal
+    wherever the reference's best and second lie farther apart than the
+    tolerance, and ratio-test masks equal except within it of the 0.49
+    boundary. Returns the largest differences, the counts, and `loose`, the
+    (P, F) entries where the two match tables may differ."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import ratio_test_mask
+
+    ix, bx, sx = out_x
+    ir, br, sr = out_r
+    n = (d_t * d_t).sum(-1)  # (S, F)
+    pq, pt = p_t[:, 0].long(), p_t[:, 1].long()
+    vq = v_t[pq]
+    qn = n[pq]
+    tol_b = rel_tol * (qn + torch.gather(n[pt], 1, ir.long()))
+    tol_s = rel_tol * (qn + n[pt].amax(dim=1, keepdim=True))
+    db = torch.where(vq, (bx - br).abs(), torch.zeros_like(bx))
+    ds = (sx - sr).abs()
+    if bool((db > tol_b).any()) or bool((ds > tol_s).any()):
+        raise AssertionError(f"K1x distances off {name}'s beyond {rel_tol} (|q|^2 + |t|^2): max "
+                             f"|d best| {float(db.max())}, max |d second| {float(ds.max())}")
+    apart = vq & ((sr - br) > tol_b + tol_s)
+    if not torch.equal(ix[apart], ir[apart]):
+        raise AssertionError(f"K1x idx differs from {name}'s at "
+                             f"{int((ix != ir)[apart].sum())} separated entries")
+    mx, mr = ratio_test_mask(bx, sx, vq), ratio_test_mask(br, sr, vq)
+    near = (br - 0.49 * sr).abs() <= tol_b + 0.49 * tol_s
+    if not torch.equal(mx[~near], mr[~near]):
+        raise AssertionError(f"K1x ratio-test masks differ from {name}'s away from the 0.49 "
+                             f"boundary")
+    return {"max_abs_err": float(torch.maximum(db.max(), ds.max())),
+            "rel": float(torch.maximum((db / tol_b).max(), (ds / tol_s).max())) * rel_tol,
+            "apart": int(apart.sum()), "valid": int(vq.sum()), "flips": int((mx != mr).sum()),
+            "near": int(near.sum()), "loose": near | (vq & ~apart)}
+
+
+def phase_exact_kernel(card: str) -> dict:
+    """K1x against its plain version (and K1) at 12 x 8192 x 128 over all
+    66 pairs. (a) integer descriptors with ties: idx, best^2 and second^2
+    bit-equal to the plain version and to K1. (b) continuous descriptors
+    (|N(0,1)| plus per-shot noise, so distances do not cancel against the
+    norms): within exact_agreement's tolerance of the plain version."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
+
+    S, F, D = 12, 8192, 128
+    pairs = np.array([(a, b) for a in range(S) for b in range(a + 1, S)], np.int32)
+    P = len(pairs)
+    dev = torch.device("cuda")
+    p_t = torch.from_numpy(pairs).to(dev)
+
+    desc, valid = int_descriptors_with_ties(S, F, D, seed=1)
+    d_t, v_t = torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)
+    out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
+    out_p = two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact)
+    out_1 = K.two_nn_batch_fused(d_t, v_t, p_t)
+    torch.cuda.synchronize()
+    for name, other in (("its plain version", out_p), ("K1", out_1)):
+        for what, a, b in zip(("idx", "best^2", "second^2"), out_x, other):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K1x {what} differs from {name} on integer descriptors at "
+                                     f"{int((a != b).sum())} entries")
+    n_ties = int((out_p[1] == out_p[2]).sum())
+    say(card, f"K1x bit-equal to its plain version and to K1 on integer descriptors at S={S} "
+              f"F={F} D={D} P={P} ({n_ties} tied best/second entries)")
+    del out_x, out_p, out_1
+
+    rng = np.random.default_rng(2)
+    base = np.abs(rng.normal(size=(F, D))).astype(np.float32)
+    desc = np.abs(np.stack([base + rng.normal(size=(F, D)).astype(np.float32) * (0.1 + 0.03 * s)
+                            for s in range(S)])).astype(np.float32)
+    d_t = torch.from_numpy(desc).to(dev)
+    out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
+    out_p = two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact)
+    torch.cuda.synchronize()
+    agree = exact_agreement(out_x, out_p, d_t, v_t, p_t, "its plain version")
+    err = agree["max_abs_err"]
+    say(card, f"K1x on continuous descriptors: max |d| {err} ({agree['rel']:.3e} of |q|^2 + "
+              f"|t|^2), idx equal at {agree['apart']} separated entries of {agree['valid']}, "
+              f"{agree['flips']} mask flips within tolerance of 0.49 ({agree['near']} near)")
+    del out_x, out_p
+
+    def kern():
+        return K.two_nn_exact_batch(d_t, v_t, p_t)
+
+    def plain():
+        return two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact)
+
+    def k1():
+        return K.two_nn_batch_fused(d_t, v_t, p_t)
+
+    ms_p1 = timed(plain, reps=3)
+    ms_x1 = timed(kern)
+    ms_1 = timed(k1)
+    ms_x2 = timed(kern)
+    ms_p2 = timed(plain, reps=3)
+    ms_x = float(np.median([ms_x1, ms_x2]))
+    ms_p = float(np.median([ms_p1, ms_p2]))
+    b = match_bound(S, F, D, P, "bf16", 3)
+    tflop = 3 * 2.0 * F * F * D * P / 1e12
+    say(card, f"K1x {ms_x1:.3f}/{ms_x2:.3f} ms (median of 5), plain {ms_p1:.3f}/{ms_p2:.3f} ms "
+              f"(median of 3), K1 {ms_1:.3f} ms on the same inputs; K1x {tflop / ms_x * 1e3:.1f} "
+              f"bf16 TFLOP/s, {b['bound_ms'] / ms_x:.2%} of its {b['bound_ms']:.3f} ms bound "
+              f"({b['bound_by']}; {card})")
+    return {"max_abs_err": err, "ms": ms_x, "plain_ms": ms_p, **b}
 
 
 def phase_fast_test(card: str) -> None:
@@ -328,6 +505,12 @@ def phase_sgm_kernels(card: str) -> tuple[dict, dict]:
                   f"(max abs err {err}); kernel {ms_k1:.3f}/{ms_k2:.3f} ms, plain "
                   f"{ms_p1:.3f}/{ms_p2:.3f} ms (median of 3 each)")
         results.append({"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
+    # K2a reads the f32 volume and writes one per axis; the staged route
+    # reads it once (the bf16 copy is its own traffic) and writes the sum.
+    # Both are bound by bytes: ~8 FP32 operations an element and direction.
+    vol = H * W * D * 4.0
+    results[0].update(bound(4 * vol, 4 * 8.0 * H * W * D, "fp32"))
+    results[1].update(bound(2 * vol, 4 * 8.0 * H * W * D, "fp32"))
     return results[0], results[1]
 
 
@@ -577,6 +760,12 @@ def phase_pm_kernel(card: str) -> dict:
                   f"{n_one} costs at 1); kernel {ms_k1:.3f}/{ms_k2:.3f} ms (median of 5), "
                   f"plain {ms_p1:.3f}/{ms_p2:.3f} ms (median of 3)")
         res[name] = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    # per (pixel, candidate): (2r+1)^2 window samples of 8 FP32 operations
+    # (bilinear 3, three sums 5) and ~16 for the statistics; bytes: the
+    # candidates in and the costs out, the four (H, W) f32 maps and in_n
+    k = (2 * r + 1) ** 2
+    res["random"].update(bound(2 * C * H * W * 4.0 + 4 * H * W * 4.0 + H * W,
+                               C * H * W * (8.0 * k + 16), "fp32"))
     return res["random"]
 
 
@@ -642,6 +831,246 @@ def phase_pm_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.
     return launches
 
 
+# the flags of run-scripts/run-orb-unordered-flann.sh, images and output aside
+ORB_FLANN_FLAGS = ["--forceColoredOutput", "-Ploglevel=2", "-Pcamera-model=SimpleRadial",
+                   "-Pfeature-detector=ORB", "-Pfeature-limit=0", "-Pomp-feature-threads=8",
+                   "-Pfeature-matcher=FLANN", "--colored", "--dense", "--mesh", "--stats",
+                   "--artifacts"]
+
+
+def phase_orb_flann_insel(card: str) -> int:
+    """insel through run-orb-unordered-flann.sh's flags, then -Prun=pcl-stats
+    on its three clouds as run-pcl-stats.sh does: 3/3 views, K1 launched on
+    the +-1 expansion at D = 256 (FLANN takes the exact kernel), K1x not
+    launched, every pcl-stats output written and non-empty, the native host
+    tier live, the mesh's quality PLY keeping its faces."""
+    from sfm_mvs_pipeline_tpu_torch import native
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "reconstruction")
+        argv = ["-Prun=photogrammetrie", f"-Pimage={os.path.join(ROOT, 'sample_data', 'insel')}",
+                f"-Pout={out}", *ORB_FLANN_FLAGS]
+        K.two_nn_batch_fused.launches = 0
+        K.two_nn_exact_batch.launches = 0
+        rc, log, wall = run_cli(argv, "chip_smoke_orb_flann_insel.log")
+        launches, launches_x = K.two_nn_batch_fused.launches, K.two_nn_exact_batch.launches
+        if rc != 0:
+            raise AssertionError(f"ORB + FLANN insel CLI exited {rc}")
+        scene, med = check_outputs(out)
+        n_rec = int(scene.recovered.sum())
+        feats = [int(v) for v in scene.feat_valid.sum(axis=1)]
+        n_pts, _ = ply_counts(os.path.join(out, "pointcloud_dense.ply"))
+        n_vm, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
+        say(card, f"ORB + FLANN insel: rc 0, {n_rec}/{scene.n_shots} views, features {feats}, "
+                  f"median reprojection {med:.4f} px, {int(scene.point_valid.sum())} sparse "
+                  f"points, {n_pts} dense points, mesh {n_vm} vertices {n_faces} faces, K1 "
+                  f"launches {launches} on descriptors {scene.descriptors.shape}, K1x launches "
+                  f"{launches_x}, wall {wall:.2f} s")
+        if n_rec != 3 or scene.n_shots != 3:
+            raise AssertionError(f"ORB + FLANN insel recovered {n_rec}/3 views")
+        if launches != 1 or launches_x != 0 or scene.descriptors.shape[2] != 256:
+            raise AssertionError(f"ORB + FLANN insel: K1 launches {launches}, K1x {launches_x}, "
+                                 f"descriptors {scene.descriptors.shape}")
+
+        t0 = time.perf_counter()
+        sizes = {}
+        for cloud in ("pointcloud_sparse", "pointcloud_dense", "mesh_dense"):
+            base = os.path.join(out, cloud)
+            rc, _, _ = run_cli(["-Prun=pcl-stats", f"-Pinput={base}.ply",
+                                f"-Pstats={base}.stats.csv", f"-Pneighbors={base}.neighbors.csv",
+                                f"-Pquality={base}.quality.ply"], f"chip_smoke_pcl_stats_{cloud}.log")
+            if rc != 0:
+                raise AssertionError(f"pcl-stats on {cloud}.ply exited {rc}")
+            for ext in ("stats.csv", "neighbors.csv", "quality.ply"):
+                path = f"{base}.{ext}"
+                sizes[f"{cloud}.{ext}"] = os.path.getsize(path) if os.path.exists(path) else 0
+        _, q_faces = ply_counts(os.path.join(out, "mesh_dense.quality.ply"))
+        say(card, f"pcl-stats on the three clouds in {time.perf_counter() - t0:.2f} s "
+                  f"(native tier {native.available()}): {sizes}; mesh quality PLY {q_faces} faces")
+        empty = [k for k, v in sizes.items() if v <= 0]
+        if empty or not native.available() or q_faces != n_faces:
+            raise AssertionError(f"pcl-stats: empty {empty}, native {native.available()}, "
+                                 f"quality mesh faces {q_faces} of {n_faces}")
+    return launches
+
+
+def trajectory_error(scene, gt_R, gt_C) -> tuple[np.ndarray, float, float]:
+    """(recovered shots, sim(3)-aligned ATE as a share of the trajectory
+    extent, max relative rotation in degrees) against the render."""
+    from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat_np
+    from sfm_mvs_pipeline_tpu_torch.utils.metrics import trajectory_compare
+
+    rec = np.nonzero(scene.recovered)[0]
+    est_R = aa_to_rotmat_np(scene.poses[rec, :3])
+    est_C = -np.einsum("sji,sj->si", est_R, scene.poses[rec, 3:])
+    cmp = trajectory_compare(est_C, est_R, gt_C[rec], gt_R[rec])
+    extent = float(np.linalg.norm(gt_C[rec][-1] - gt_C[rec][0]))
+    return rec, cmp["ate_rmse"] / extent, float(cmp["max_rel_rot_deg"])
+
+
+# Limits of phase 13, from the JAX package's ORB CLI on the CPU on this
+# render cut to 480x270 (f = 420): 12/12 views, ATE 0.096% of extent, max
+# relative rotation 0.41 deg, median reprojection 0.37 px. The ATE and
+# rotation limits leave ~5x and ~3.6x room for f32 against f64 and the
+# port's RANSAC draws, as phase 7's limit was set; the reprojection limit is
+# the 1 px of every phase.
+ORB_ATE_LIMIT = 0.005
+ORB_ROT_LIMIT_DEG = 1.5
+# SfM seeds phase 13 reruns on the CLI run's features (the CLI's is 0)
+ORB_SWEEP_SEEDS = (1, 2, 3, 4, 5)
+
+
+def sparse_real_size_run(card: str, argv: list[str], log_name: str, n_views: int,
+                         gt_R, gt_C, ate_limit: float, rot_limit: float, label: str):
+    """One sparse CLI run of the render under the stage timers, checked:
+    all views, ATE and rotation within the limits, median reprojection
+    < 1 px. Returns the scene."""
+    from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+
+    stage_timer.enable()
+    try:
+        rc, log, wall = run_cli(argv, log_name)
+        split = stage_timer.report()
+    finally:
+        stage_timer.enable(False)
+    if rc != 0:
+        raise AssertionError(f"{label} CLI exited {rc}")
+    out = next(a.split("=", 1)[1] for a in argv if a.startswith("-Pout="))
+    scene, med = check_outputs(out)
+    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
+    feats = [int(v) for v in scene.feat_valid.sum(axis=1)]
+    say(card, f"{label}: {len(rec)}/{n_views} views, features per image {feats} (capacity "
+              f"{scene.feat_valid.shape[1]}), ATE {rel_ate:.5%} of extent (limit "
+              f"{ate_limit:.2%}), max rel rot {rot:.4f} deg (limit {rot_limit} deg), median "
+              f"reprojection {med:.4f} px (limit 1 px), "
+              f"{int(scene.point_valid.sum())} points; CLI wall "
+              f"{wall:.2f} s, features {split['features'][0]:.3f} s, sfm {split['sfm'][0]:.3f} s "
+              f"(synchronising stage timers)")
+    if len(rec) != n_views:
+        raise AssertionError(f"{label} recovered {len(rec)}/{n_views} views")
+    if not (rel_ate <= ate_limit and rot <= rot_limit and med < 1.0):
+        raise AssertionError(f"{label}: ATE {rel_ate:.4%}, rot {rot} deg, reprojection {med} px")
+    return scene
+
+
+def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
+    """The 1080p render with ORB at full image size and -Pfeature-limit=0
+    (capacity 65,536), sparse: limits ORB_ATE_LIMIT and ORB_ROT_LIMIT_DEG,
+    median reprojection < 1 px, K1 launched once on the +-1 expansion at
+    (12, 65536, 256). Then K1 alone, timed on the run's own descriptors.
+    Then the SfM again on the run's features with each of ORB_SWEEP_SEEDS,
+    so other RANSAC draws are seen too: each must recover every view within
+    the ATE and rotation limits; their median reprojections are printed
+    (the spatial merge's reach grows with the first baseline's length, see
+    PERF.md)."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.models.cameras import make_intrinsics
+    from sfm_mvs_pipeline_tpu_torch.models.scene import Scene
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.pairs import make_pairs
+    from sfm_mvs_pipeline_tpu_torch.sfm.incremental import SfMConfig, reconstruct
+    from sfm_mvs_pipeline_tpu_torch.utils.stats import reprojection_errors
+
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    out = os.path.join(work, "out-orb")
+    argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}",
+            "-Pfeature-detector=ORB", "-Pfeature-limit=0"]
+    K.two_nn_batch_fused.launches = 0
+    scene = sparse_real_size_run(card, argv, "chip_smoke_orb_real_size.log", n_views, gt_R,
+                                 gt_C, ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG, "ORB real-size")
+    launches = K.two_nn_batch_fused.launches
+    S, F, D = scene.descriptors.shape
+    if launches != 1 or (F, D) != (65536, 256):
+        raise AssertionError(f"ORB real-size: K1 launches {launches} on descriptors "
+                             f"{scene.descriptors.shape}")
+    d_t = torch.from_numpy(scene.descriptors).cuda()
+    v_t = torch.from_numpy(scene.feat_valid).cuda()
+    pairs = np.array([(a, b) for a in range(n_views) for b in range(a + 1, n_views)], np.int32)
+    p_t = torch.from_numpy(pairs).cuda()
+    ms = timed(lambda: K.two_nn_batch_fused(d_t, v_t, p_t), reps=2)
+    flop = 2.0 * F * F * D * len(pairs)
+    b = match_bound(S, F, D, len(pairs), "fp32", 1)
+    say(card, f"ORB real-size: K1 launches {launches} at (S, F, D) ({S}, {F}, {D}); K1 alone on "
+              f"the run's descriptors over {len(pairs)} pairs: {ms:.1f} ms (median of 2), "
+              f"{flop / ms / 1e9:.2f} TFLOP/s, {b['bound_ms'] / ms:.2%} of its "
+              f"{b['bound_ms']:.1f} ms bound ({card})")
+    del d_t, v_t
+
+    rows = []
+    for seed in ORB_SWEEP_SEEDS:
+        sweep = Scene.create(scene.image_paths, scene.image_size, scene.keypoints,
+                             scene.descriptors, scene.feat_valid,
+                             make_intrinsics(w, h).numpy().astype(np.float64))
+        st = reconstruct(sweep, make_pairs("unordered", n_views),
+                         SfMConfig(seed=seed, binary_descriptors=True))
+        n_rec = int(sweep.recovered.sum())
+        _, rel_ate, rot = trajectory_error(sweep, gt_R, gt_C) if n_rec >= 3 else (0, 1.0, 180.0)
+        med = float(np.median(reprojection_errors(sweep))) if n_rec >= 2 else float("nan")
+        rows.append((seed, n_rec, st["baseline"], st.get("attempts"), rel_ate, rot, med))
+    say(card, "ORB real-size, SfM seeds on the run's features (seed, views, baseline, starts, "
+              "ATE, max rel rot deg, median reprojection px): "
+              + "; ".join(f"{r[0]}: {r[1]}/{n_views} {r[2]} {r[3]} {r[4]:.5%} {r[5]:.4f} "
+                          f"{r[6]:.4f}" for r in rows))
+    bad = [r for r in rows if r[1] != n_views or r[4] > ORB_ATE_LIMIT or r[5] > ORB_ROT_LIMIT_DEG]
+    if bad:
+        raise AssertionError(f"ORB real-size: seeds outside the limits: {bad}")
+    return {"launches": launches, "ms": ms}
+
+
+def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
+    """-Pmatch-precision=exact on the 1080p render with SIFT: phase 4's
+    limits, K1x launched once over the 66 pairs and K1 not at all. Then K1x
+    and K1 on the run's own descriptors: SIFT's are continuous (L2-normalised
+    to 512), so the two agree within SPLIT_REL_TOL, and the
+    (idx, mask) tables of match_pairs_batch(exact=True) and (exact=False)
+    differ only at entries that tolerance leaves open (a near-tie of best
+    and second, or a ratio within it of the 0.49 boundary)."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch, two_nn_batch, two_nn_exact
+
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    out = os.path.join(work, "out-exact")
+    argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0",
+            "-Pmatch-precision=exact"]
+    K.two_nn_batch_fused.launches = 0
+    K.two_nn_exact_batch.launches = 0
+    scene = sparse_real_size_run(card, argv, "chip_smoke_exact_real_size.log", n_views, gt_R,
+                                 gt_C, 0.001, 0.25, "exact real-size")
+    launches, launches_1 = K.two_nn_exact_batch.launches, K.two_nn_batch_fused.launches
+    if launches != 1 or launches_1 != 0:
+        raise AssertionError(f"exact real-size: K1x launches {launches}, K1 {launches_1}")
+    d_t = torch.from_numpy(scene.descriptors).cuda()
+    v_t = torch.from_numpy(scene.feat_valid).cuda()
+    pairs = np.array([(a, b) for a in range(n_views) for b in range(a + 1, n_views)], np.int32)
+    p_t = torch.from_numpy(pairs).cuda()
+    out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
+    plain = exact_agreement(out_x, two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact), d_t, v_t, p_t,
+                            "its plain version")
+    agree = exact_agreement(out_x, K.two_nn_batch_fused(d_t, v_t, p_t), d_t, v_t, p_t, "K1",
+                            SPLIT_REL_TOL)
+    ix, mx = match_pairs_batch(d_t, v_t, p_t, exact=True)
+    i1, m1 = match_pairs_batch(d_t, v_t, p_t, exact=False)
+    differ = (mx != m1) | (mx & m1 & (ix != i1))
+    if bool((differ & ~agree["loose"]).any()):
+        raise AssertionError(f"exact and fast match tables differ at "
+                             f"{int((differ & ~agree['loose']).sum())} entries the tolerance "
+                             f"does not leave open")
+    n_int = int((d_t == torch.round(d_t)).all(dim=-1)[v_t].sum())
+    say(card, f"exact real-size: K1x launches {launches}, K1 {launches_1}; on the run's "
+              f"descriptors {tuple(d_t.shape)} ({n_int} of {int(v_t.sum())} integer-valued) over "
+              f"{len(pairs)} pairs, K1x vs its plain version max |d| {plain['max_abs_err']} "
+              f"({plain['rel']:.3e} of |q|^2 + |t|^2, idx equal at {plain['apart']} separated "
+              f"entries of {plain['valid']}), K1x vs K1 max |d| {agree['max_abs_err']} "
+              f"({agree['rel']:.3e} of |q|^2 + |t|^2); exact and fast (idx, mask) tables differ "
+              f"at {int(differ.sum())} of {int(m1.sum())} fast matches, all within tolerance "
+              f"({agree['near']} entries near 0.49, {agree['valid'] - agree['apart']} near-ties)")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
@@ -655,13 +1084,21 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     card = card_line()
     print(card, flush=True)
+    from sfm_mvs_pipeline_tpu_torch import native
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
 
     say(card, f"torch {torch.__version__} cuda {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build.build(match_kernel.SOURCE, sgm_kernel.SOURCE, pm_kernel.SOURCE, verbose=True)
-    say(card, f"phase 1: K1, K2a, K2b and K3 built in {time.perf_counter() - t0:.2f} s")
+    host = threading.Thread(target=native.available)  # g++, beside the nvcc processes
+    host.start()
+    build.build(match_kernel.SOURCE, match_kernel.EXACT_SOURCE, sgm_kernel.SOURCE,
+                pm_kernel.SOURCE, verbose=True)
+    host.join()
+    if not native.available():
+        raise AssertionError("the native host tier did not build")
+    say(card, f"phase 1: K1, K1x, K2a, K2b, K3 and the native host tier built in "
+              f"{time.perf_counter() - t0:.2f} s")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         return run_phases(card, phases, work)
@@ -677,6 +1114,8 @@ def run_phases(card: str, phases: set, work: str) -> int:
     k2a = {"name": "sgm_bidir", "route": "cuda", "source": K2_SOURCE, "replaces": K2A_REPLACES}
     k2b = {"name": "sgm_dir_acc", "route": "cuda", "source": K2_SOURCE, "replaces": K2B_REPLACES}
     k3 = {"name": "pm_score_rect", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES}
+    k1x = {"name": "two_nn_exact_batch", "route": "cuda", "source": K1X_SOURCE,
+           "replaces": K1X_REPLACES}
     if 2 in phases:
         t0 = time.perf_counter()
         entry.update(phase_kernel(card))
@@ -715,10 +1154,28 @@ def run_phases(card: str, phases: set, work: str) -> int:
         t0 = time.perf_counter()
         k3["launches"] = phase_pm_real_size(card, work)
         say(card, f"phase 10: {time.perf_counter() - t0:.2f} s")
+    if 11 in phases:
+        t0 = time.perf_counter()
+        k1x.update(phase_exact_kernel(card))
+        say(card, f"phase 11: {time.perf_counter() - t0:.2f} s")
+    if 12 in phases:
+        t0 = time.perf_counter()
+        phase_orb_flann_insel(card)
+        say(card, f"phase 12: {time.perf_counter() - t0:.2f} s")
+    if 13 in phases:
+        t0 = time.perf_counter()
+        phase_orb_real_size(card, work)
+        say(card, f"phase 13: {time.perf_counter() - t0:.2f} s")
+    if 14 in phases:
+        t0 = time.perf_counter()
+        k1x["launches"] = phase_exact_real_size(card, work)
+        say(card, f"phase 14: {time.perf_counter() - t0:.2f} s")
     if phases != ALL_PHASES:
         print(f"partial run (phases {sorted(phases)}): no result line", flush=True)
-        return 3
-    print(json.dumps({"kernels": [entry, k2a, k2b, k3]}), flush=True)
+        return 4
+    for k in (entry, k2a, k2b, k3, k1x):
+        k["library_ms"] = None  # no single PyTorch call computes any of these functions
+    print(json.dumps({"kernels": [entry, k2a, k2b, k3, k1x]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -30,6 +30,19 @@ APP_VERSION = __version__
 
 
 def default_device() -> _torch.device:
-    """The card when one is present, else the CPU (where every kernel
-    wrapper takes its plain PyTorch version)."""
-    return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
+    """The card. Raises when there is none: the port never falls back to the
+    CPU on its own. A caller that wants the CPU (where every kernel wrapper
+    takes its plain PyTorch version) passes device="cpu" to the entry point,
+    or -Pdevice=cpu to the CLI."""
+    if not _torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' "
+            "(CLI: -Pdevice=cpu) to run on the CPU"
+        )
+    return _torch.device("cuda")
+
+
+def resolve_device(device: _torch.device | str | None) -> _torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    card (default_device)."""
+    return _torch.device(device) if device is not None else default_device()

@@ -3,8 +3,7 @@
 Port of sfm_mvs_pipeline_tpu/cli/app.py (ref: src/cli/App.cpp:31-77):
   * -Ploglevel=0..4, --forceColoredOutput
   * -Pthreads=N caps host thread pools (App.cpp:42-45)
-  * -Prun=photogrammetrie dispatch (App.cpp:47-55); -Prun=pcl-stats is
-    not yet ported and exits non-zero
+  * -Prun=photogrammetrie|pcl-stats dispatch (App.cpp:47-55)
 """
 
 from __future__ import annotations
@@ -24,8 +23,7 @@ def print_usage() -> None:
 Usage: python -m sfm_mvs_pipeline_tpu_torch [-Prun=<subprogram>] [options]
 
 Global options:
-  -Prun=photogrammetrie             subprogram to run (default photogrammetrie;
-                                    pcl-stats is not yet ported)
+  -Prun=photogrammetrie|pcl-stats   subprogram to run (default photogrammetrie)
   -Ploglevel=0..4                   0=trace .. 4=error (default 2=info)
   -Pthreads=N                       cap host-side worker threads
   --forceColoredOutput              ANSI colors even when not a tty
@@ -59,8 +57,7 @@ def main(argv: list[str] | None = None) -> int:
     if run == "photogrammetrie":
         from sfm_mvs_pipeline_tpu_torch.cli.photogrammetrie import main as sub_main
     elif run == "pcl-stats":
-        log.error("-Prun=pcl-stats is not yet ported to sfm_mvs_pipeline_tpu_torch")
-        return 2
+        from sfm_mvs_pipeline_tpu_torch.cli.pcl_stats import main as sub_main
     else:
         log.error(f"unknown subprogram: {run}")
         print_usage()

@@ -2,14 +2,13 @@
 
 Port of sfm_mvs_pipeline_tpu/cli/photogrammetrie.py, after
 PhotogrammetrieCli (ref: src/cli/PhotogrammetrieCli.cpp:45-247): workdir
-prep -> stats sampler -> SIFT -> scene -> SfM -> PLYs, stats, artifacts and
-the scene.npz checkpoint -> dense MVS (--dense), or dense MVS resumed from a
-checkpoint (-Presume=). The flags are the JAX package's, every dense method
-included (-Pdense-method=rect|sweep|patchmatch); the ones whose stages are
-not ported yet (ORB, FLANN, -Pprofile=) exit non-zero with a "not yet
-ported" message.
+prep -> stats sampler -> SIFT or ORB -> scene -> SfM -> PLYs, stats,
+artifacts and the scene.npz checkpoint -> dense MVS (--dense), or dense MVS
+resumed from a checkpoint (-Presume=). The flags are the JAX package's.
 
-Work runs on the card when one is present, else on the CPU.
+Work runs on the card (-Pdevice=cuda, the default; the run fails without
+one) or, when asked with -Pdevice=cpu, on the CPU, where every kernel
+wrapper takes its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -33,11 +32,21 @@ def print_usage() -> None:
   -Pimage=<dir|file>                 image directory (or repeated files)
   -Pout=<dir>                        working/output directory (default ./out)
   -Pcamera-model=simple|simple-radial|distortion   (default simple-radial)
-  -Pfeature-detector=sift            (default sift; orb is not yet ported)
+  -Pdevice=cuda|cpu                  where the work runs (default cuda: the
+                                     card, or fail; cpu runs the kernels'
+                                     plain PyTorch versions)
+  -Pfeature-detector=sift|orb        (default sift; orb = FAST-9 + Harris on
+                                     an 8-level pyramid, rotated BRIEF)
   -Pfeature-limit=N                  max features per image (default 10000,
                                      max 262144; 0 = unlimited)
-  -Pfeature-matcher=bf               (default bf; flann is not yet ported)
-  -Pmatch-precision=fast|exact       both run the fp32 matcher kernel
+  -Pfeature-matcher=bf|flann         (default bf; flann runs the same exact
+                                     brute-force kernel K1, as the JAX
+                                     package does on its TPU)
+  -Pmatch-precision=fast|exact       (default fast: kernel K1, fp32 FMAs;
+                                     exact: kernel K1x, the bf16x3 split on
+                                     the tensor cores, distances within
+                                     4.6e-5 (|q|^2 + |t|^2); ORB
+                                     descriptors always run K1, exactly)
   -Pfeature-sequence=N               video window / grid neighborhood size
   -Pfeature-gridlength=N             grid row length (enables grid pairing)
   -Pmatch-threshold=N                min matches per pair (default 20)
@@ -52,6 +61,9 @@ def print_usage() -> None:
   -Ppointcloud-feature-merge-distance=X  (default 20)
   -Pomp-feature-threads=N            (accepted for compat; batching replaces it)
   -Presume=<scene.npz>               skip SfM, resume from a scene checkpoint
+  -Pprofile=<dir>                    capture a torch.profiler trace (CPU and
+                                     CUDA activity) of the run as a Chrome
+                                     trace in <dir>
   --distinct-matches                 drop ambiguous (shared-target) matches
   --colored                          colorize the sparse cloud (+ texture the
                                      mesh, like the reference's TextureMesh)
@@ -70,10 +82,7 @@ def print_usage() -> None:
   --stats                            write statistics CSVs + resource samples
   --artifacts                        keep debug artifacts (keypoints, matches,
                                      depth maps)
-  --help
-
-Not yet ported (exit non-zero): -Pprofile=, -Pfeature-detector=orb,
--Pfeature-matcher=flann."""
+  --help"""
     )
 
 
@@ -84,25 +93,10 @@ def prepare_working_dir(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
-def _not_ported(args: AppArgs) -> str | None:
-    """The first requested feature this port does not have yet, if any."""
-    if args.get("profile"):
-        return "-Pprofile="
-    if args.get("feature-detector", "sift").lower() == "orb":
-        return "-Pfeature-detector=orb"
-    if args.get("feature-matcher", "bf").lower() == "flann":
-        return "-Pfeature-matcher=flann"
-    return None
-
-
 def main(args: AppArgs) -> int:
     if args.is_flag("help"):
         print_usage()
         return 0
-    missing = _not_ported(args)
-    if missing:
-        log.error(f"{missing} is not yet ported to sfm_mvs_pipeline_tpu_torch")
-        return 2
     out_dir = args.get("out", "out")
     image_args = args.get_all("image")
     resume = args.get("resume")
@@ -110,6 +104,7 @@ def main(args: AppArgs) -> int:
         log.error("no -Pimage given")
         print_usage()
         return 2
+    dev = _device(args)  # before the workdir wipe: a run without its card fails first
 
     # a resume checkpoint inside the output dir (resuming from the previous
     # run's own scene.npz) must survive the workdir wipe below: stash it in a
@@ -134,8 +129,8 @@ def main(args: AppArgs) -> int:
             sampler.start()
         try:
             if args.get("resume"):
-                return _run_resumed(args, out_dir, args.get("resume"))
-            return _run_inner(args, out_dir, image_args)
+                return _run_resumed(args, out_dir, args.get("resume"), dev)
+            return _run_profiled(args, out_dir, image_args, dev)
         finally:
             if sampler:
                 sampler.stop()
@@ -144,14 +139,47 @@ def main(args: AppArgs) -> int:
             shutil.rmtree(stash, ignore_errors=True)
 
 
-def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
+def _device(args: AppArgs):
+    """-Pdevice=cuda|cpu (default cuda): the port's counterpart of
+    JAX_PLATFORMS. cuda without a card raises."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch import default_device
+
+    name = args.get("device", "cuda").lower()
+    if name == "cuda":
+        return default_device()
+    if name == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"unknown -Pdevice={name} (expected cuda|cpu)")
+
+
+def _run_profiled(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
+    """_run_inner, under torch.profiler when -Pprofile=<dir> is given: CPU
+    and (on the card) CUDA activity, written as a Chrome trace into <dir>."""
+    profile_dir = args.get("profile")
+    if not profile_dir:
+        return _run_inner(args, out_dir, image_args, dev)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        rc = _run_inner(args, out_dir, image_args, dev)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    log.info(f"profiler trace written to {path}")
+    return rc
+
+
+def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
+    import torch
+
     from sfm_mvs_pipeline_tpu_torch.models.cameras import make_intrinsics
     from sfm_mvs_pipeline_tpu_torch.models.scene import Scene
     from sfm_mvs_pipeline_tpu_torch.ops.pairs import make_pairs
-    from sfm_mvs_pipeline_tpu_torch.ops.sift import sift_features
     from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig
     from sfm_mvs_pipeline_tpu_torch.sfm.incremental import SfMConfig, reconstruct
     from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import save_scene
@@ -164,9 +192,9 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
         write_camera_frustums_ply,
         write_ply_points,
     )
+    from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
     from sfm_mvs_pipeline_tpu_torch.utils.stats import write_reprojection_stats
 
-    dev = default_device()
     log.info(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
 
     # ---- enumerate images (dir or repeated files, sorted)
@@ -182,29 +210,21 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
         return 2
     imgs, (w, h) = load_gray_batch(paths)
 
-    # ---- SIFT with adaptive capacity: limit 0 = "unlimited" like
-    # cv::SIFT::create(0, ...) (PhotogrammetrieCli.cpp:345, max 2^18)
+    # ---- features; limit 0 = "unlimited" like cv::SIFT::create(0, ...)
+    # (PhotogrammetrieCli.cpp:345, max 2^18)
+    detector = args.get("feature-detector", "sift").lower()
+    if detector not in ("sift", "orb"):
+        log.error(f"unknown feature detector: {detector}")
+        return 2
     requested_limit = args.get_int("feature-limit", 10000)
     feature_limit = requested_limit if requested_limit > 0 else 1 << 18
     feature_limit = min(feature_limit, 1 << 18)
     explicit = args.get("feature-limit") is not None
     warn_req = requested_limit if (explicit and requested_limit > 0) else None
-    log.info(f"extracting sift features (limit {feature_limit})")
-    # start small and escalate x4 only on saturation: the top-k and
-    # padded-slot work scales with capacity, not detections
+    log.info(f"extracting {detector} features (limit {feature_limit})")
     cap_env = _feature_cap(feature_limit, w, h, warn_req)
-    cap = min(cap_env, 2048)
-    imgs_d = torch.as_tensor(imgs, device=dev)
-    while True:
-        feats = sift_features(imgs_d, max_features=cap, contrast_threshold=0.09)
-        detected = int(feats["valid"].sum(dim=1).max())
-        if detected < cap or cap >= cap_env:
-            break
-        cap = min(cap * 4, cap_env)
-        log.info(f"feature capacity saturated ({detected}); escalating to {cap}")
-    descs = feats["descriptors"].cpu().numpy()
-    kps = feats["keypoints"].cpu().numpy()
-    valid = feats["valid"].cpu().numpy()
+    with stage("features"):
+        kps, descs, valid = _extract_features(detector, torch.as_tensor(imgs, device=dev), cap_env)
     log.info(f"features per image: {[int(v.sum()) for v in valid]}")
 
     # ---- scene + camera model
@@ -238,10 +258,15 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
         point_merge_distance=args.get_float("pointcloud-point-merge-distance", 0.01),
         feature_merge_distance=args.get_float("pointcloud-feature-merge-distance", 20.0),
         distinct_matches=args.is_flag("distinct-matches"),
+        matcher_method=(
+            "flann" if args.get("feature-matcher", "bf").lower() == "flann" else "bf"
+        ),
         exact_match=_match_precision(args) == "exact",
+        binary_descriptors=(detector == "orb"),
         ba=BAConfig(),
     )
-    stats = reconstruct(scene, pairs, cfg, log=logging.AppLogger("SfM").info, device=dev)
+    with stage("sfm"):
+        stats = reconstruct(scene, pairs, cfg, log=logging.AppLogger("SfM").info, device=dev)
     log.info(f"SfM done: {stats}")
     if stats.get("baseline") is None:
         log.error("reconstruction failed: no baseline pair")
@@ -266,16 +291,16 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list) -> int:
         st = write_reprojection_stats(scene, out_dir)
         log.info(f"reprojection error: mean {st['mean']:.3f} median {st['median']:.3f}")
     if args.is_flag("artifacts"):
-        _write_artifacts(scene, out_dir)
+        _write_artifacts(scene, out_dir, dev)
     # durable scene checkpoint, the same format the JAX package writes
     save_scene(scene, os.path.join(out_dir, "scene.npz"))
     if args.is_flag("dense"):
-        _run_dense(args, scene, out_dir)
+        _run_dense(args, scene, out_dir, dev)
     log.info("done")
     return 0
 
 
-def _run_dense(args: AppArgs, scene, out_dir: str) -> None:
+def _run_dense(args: AppArgs, scene, out_dir: str, dev) -> None:
     """The dense branch (ref: MVS stage of PhotogrammetrieCli.cpp:229-240)."""
     from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import MVSConfig, run_mvs
     from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
@@ -290,10 +315,10 @@ def _run_dense(args: AppArgs, scene, out_dir: str) -> None:
         keep_artifacts=args.is_flag("artifacts"),
     )
     with stage("dense"):
-        run_mvs(scene, out_dir, cfg, log=logging.AppLogger("MVS").info)
+        run_mvs(scene, out_dir, cfg, log=logging.AppLogger("MVS").info, device=dev)
 
 
-def _run_resumed(args: AppArgs, out_dir: str, resume_path: str) -> int:
+def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, dev) -> int:
     """Resume from a scene checkpoint: re-run exports and/or dense MVS
     without repeating SfM (reference mvs.bin parity)."""
     from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene, save_scene
@@ -321,9 +346,37 @@ def _run_resumed(args: AppArgs, out_dir: str, resume_path: str) -> int:
         scene.image_size,
     )
     if args.is_flag("dense"):
-        _run_dense(args, scene, out_dir)
+        _run_dense(args, scene, out_dir, dev)
     log.info("done")
     return 0
+
+
+def _extract_features(detector: str, imgs_d, cap_env: int):
+    """(keypoints, descriptors, valid) as host arrays: SIFT with adaptive
+    capacity, or ORB at the full capacity with its packed bits expanded to
+    +-1 floats (the JAX package's ORB branch)."""
+    if detector == "sift":
+        from sfm_mvs_pipeline_tpu_torch.ops.sift import sift_features
+
+        # start small and escalate x4 only on saturation: the top-k and
+        # padded-slot work scales with capacity, not detections
+        cap = min(cap_env, 2048)
+        while True:
+            feats = sift_features(imgs_d, max_features=cap, contrast_threshold=0.09)
+            detected = int(feats["valid"].sum(dim=1).max())
+            if detected < cap or cap >= cap_env:
+                break
+            cap = min(cap * 4, cap_env)
+            log.info(f"feature capacity saturated ({detected}); escalating to {cap}")
+        descs = feats["descriptors"]
+    else:
+        from sfm_mvs_pipeline_tpu_torch.ops.matching import expand_binary_descriptors
+        from sfm_mvs_pipeline_tpu_torch.ops.orb import orb_features
+
+        feats = orb_features(imgs_d, max_features=cap_env)
+        descs = expand_binary_descriptors(feats["descriptors"])
+    return (feats["keypoints"].cpu().numpy(), descs.cpu().numpy(),
+            feats["valid"].cpu().numpy())
 
 
 def _feature_cap(limit: int, w: int, h: int, warn_requested: int | None = None) -> int:
@@ -344,7 +397,12 @@ def _feature_cap(limit: int, w: int, h: int, warn_requested: int | None = None) 
 
 
 def _match_precision(args: AppArgs) -> str:
-    """Validated -Pmatch-precision=; fast and exact both run the fp32 kernel."""
+    """Validated -Pmatch-precision=: fast runs kernel K1 (full fp32 FMAs;
+    exact on ORB's +-1 expansion), exact runs kernel K1x (the JAX package's
+    exact mode: the bf16x3 split q2_hi.t_hi + q2_lo.t_hi + q2_hi.t_lo on the
+    tensor cores; the split's remainders and the dropped lo.lo term bound
+    the error by 3 * 2^-16 (|q|^2 + |t|^2) = 4.6e-5 of it on continuous
+    descriptors such as SIFT's; ORB descriptors still run K1)."""
     mode = args.get("match-precision", "fast").lower()
     if mode not in ("fast", "exact"):
         raise ValueError(f"unknown -Pmatch-precision={mode} (expected fast|exact)")
@@ -359,7 +417,7 @@ def _dense_method(args: AppArgs) -> str:
     return method
 
 
-def _write_artifacts(scene, out_dir: str) -> None:
+def _write_artifacts(scene, out_dir: str, dev) -> None:
     """Debug artifacts mirroring the reference (PhotogrammetrieCli.cpp:139-219):
     keypoint overlays per shot, match lines per recovered pair (from the
     observation table), undistorted images, scene.txt."""
@@ -407,7 +465,7 @@ def _write_artifacts(scene, out_dir: str) -> None:
         cv2.imwrite(os.path.join(art, f"matches_{a:04d}_{b:04d}.jpg"), canvas)
 
     for s in range(scene.n_shots):
-        und = _undistort_image(rgbs[s], scene.intrinsics[scene.cam_of_shot[s]])
+        und = _undistort_image(rgbs[s], scene.intrinsics[scene.cam_of_shot[s]], dev)
         cv2.imwrite(
             os.path.join(art, f"undistorted_{s:04d}.png"),
             cv2.cvtColor(und.astype(np.uint8), cv2.COLOR_RGB2BGR),

@@ -85,15 +85,18 @@ def fuse_depth_maps(
     min_views: int = 3,
     rel_tolerance: float = 0.01,
     log=lambda *a: None,
+    device=None,
 ) -> dict:
     """Fuse per-view depth maps into one consistent dense cloud.
 
     min_views counts the reference view itself (reference default: 3-view
-    fusion inliers, MVS.h:62). Returns dict(points, normals, colors).
+    fusion inliers, MVS.h:62). The (un)projections run on `device`
+    (default: the card; raises without one). Returns dict(points, normals,
+    colors).
     """
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
 
-    dev = default_device()
+    dev = resolve_device(device)
     V, H, W = depth_maps.shape
     consumed = np.zeros((V, H, W), bool)
     out_pts, out_nrm, out_col = [], [], []

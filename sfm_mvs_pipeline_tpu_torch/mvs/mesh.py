@@ -36,11 +36,14 @@ def depth_map_to_mesh(
     rgb: np.ndarray | None = None,  # (H, W, 3)
     max_depth_ratio: float = 0.05,
     stride: int = 1,
+    device=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
-    """Triangulate one view's depth map. Returns (vertices, faces, colors)."""
+    """Triangulate one view's depth map, back-projecting on `device`
+    (default: the card; raises without one). Returns (vertices, faces,
+    colors)."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
     from sfm_mvs_pipeline_tpu_torch.mvs.fusion import unproject_depth
 
     d = depth[::stride, ::stride]
@@ -48,7 +51,7 @@ def depth_map_to_mesh(
     h, w = d.shape
     intr_s = intr.copy()
     intr_s[:3] = intr[:3] / stride
-    dev = default_device()
+    dev = resolve_device(device)
     pts, _ = unproject_depth(
         torch.as_tensor(np.ascontiguousarray(d), dtype=torch.float32, device=dev), None,
         torch.as_tensor(pose, dtype=torch.float32, device=dev),
@@ -307,8 +310,10 @@ def mesh_from_depth_maps(
     smooth_iters: int = 2,
     close_holes_edges: int = 30,
     log=lambda *a: None,
+    device=None,
 ) -> dict:
-    """Full meshing pass over all views."""
+    """Full meshing pass over all views; the back-projection runs on
+    `device` (default: the card), the rest is host numpy."""
     all_v, all_f, all_c = [], [], []
     off = 0
     for i in range(len(depth_maps)):
@@ -316,7 +321,7 @@ def mesh_from_depth_maps(
             continue
         v, f, c = depth_map_to_mesh(
             depth_maps[i], valids[i], poses[i], intr,
-            rgbs[i] if rgbs is not None else None,
+            rgbs[i] if rgbs is not None else None, device=device,
         )
         all_v.append(v)
         all_f.append(f + off)

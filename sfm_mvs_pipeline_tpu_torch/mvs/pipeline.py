@@ -60,14 +60,14 @@ class MVSConfig:
     keep_artifacts: bool = False
 
 
-def _undistort_image(img: np.ndarray, intr: np.ndarray) -> np.ndarray:
+def _undistort_image(img: np.ndarray, intr: np.ndarray, device: torch.device) -> np.ndarray:
     """Resample an image so straight lines are straight under pinhole K.
 
     For each undistorted target pixel: normalized -> distort -> source pixel
     (the map cv2.initUndistortRectifyMap builds; the reference exports
     undistorted PNGs the same way, OpenMvsUtils.cpp:136-150), sampled
-    bilinearly with the dense engines' clamped taps. Returns float32."""
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    bilinearly with the dense engines' clamped taps, on `device`. Returns
+    float32."""
     from sfm_mvs_pipeline_tpu_torch.models.cameras import (
         distort_normalized,
         normalized_to_pixels,
@@ -75,7 +75,7 @@ def _undistort_image(img: np.ndarray, intr: np.ndarray) -> np.ndarray:
     )
     from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import _bilinear_hw, pixel_grid
 
-    dev = default_device()
+    dev = device
     h, w = img.shape[:2]
     intr_d = torch.as_tensor(np.asarray(intr, np.float32), device=dev)
     uv = pixel_grid(h, w, torch.float32, dev)[:2].T  # (H*W, 2)
@@ -89,12 +89,14 @@ def _undistort_image(img: np.ndarray, intr: np.ndarray) -> np.ndarray:
     return torch.stack(chans, dim=-1).cpu().numpy()
 
 
-def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: None) -> dict:
-    """Densify (and optionally mesh) a reconstructed scene. Writes
-    pointcloud_dense.ply (+ mesh_dense.ply) into out_dir. Returns results."""
+def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: None,
+            device: torch.device | str | None = None) -> dict:
+    """Densify (and optionally mesh) a reconstructed scene on `device`
+    (default: the card; raises without one). Writes pointcloud_dense.ply
+    (+ mesh_dense.ply) into out_dir. Returns results."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
     from sfm_mvs_pipeline_tpu_torch.mvs.fusion import fuse_depth_maps
     from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import depth_range, select_neighbors
     from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import (
@@ -114,7 +116,7 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
     cfg = cfg or MVSConfig()
     if cfg.method not in ("rect", "sweep", "patchmatch"):
         raise ValueError(f"unknown dense method {cfg.method!r}")
-    dev = default_device()
+    dev = resolve_device(device)
     rec = [int(s) for s in np.nonzero(scene.recovered)[0]]
     if len(rec) < 2:
         log("not enough recovered views for densification")
@@ -144,7 +146,7 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             rgb = load_rgb(scene.image_paths[s], (w0, h0))
             if scale != 1.0:
                 rgb = cv2.resize(rgb, (w, h), interpolation=cv2.INTER_AREA)
-            rgb_u = _undistort_image(rgb, intr)
+            rgb_u = _undistort_image(rgb, intr, dev)
             gray = cv2.cvtColor(rgb_u.astype(np.uint8), cv2.COLOR_RGB2GRAY)
             grays.append(gray.astype(np.float32) / 255.0)
             rgbs.append(rgb_u.astype(np.uint8))
@@ -234,6 +236,7 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             min_views=min(cfg.min_fusion_views, len(rec)),
             rel_tolerance=cfg.fusion_tolerance,
             log=log,
+            device=dev,
         )
         log(f"fused dense cloud: {len(fused['points'])} points")
         write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
@@ -242,7 +245,7 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
     results = {"dense": fused, "depth_maps": depth_maps, "valids": valids}
     if cfg.mesh:
         results["mesh"] = _mesh(cfg, out_dir, depth_maps, valids, poses,
-                                intr_pinhole.astype(np.float32), rgbs, grays, log, results)
+                                intr_pinhole.astype(np.float32), rgbs, grays, log, results, dev)
     return results
 
 
@@ -295,7 +298,7 @@ def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo,
     return depth, cost, valid, ""
 
 
-def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, results):
+def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, results, dev):
     """Mesh the depth maps, optionally refine and texture; writes
     mesh_dense.ply (textured when cfg.texture, with its atlas PNG)."""
     from sfm_mvs_pipeline_tpu_torch.mvs.mesh import mesh_from_depth_maps
@@ -303,14 +306,14 @@ def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, resul
 
     with stage("mesh"):
         mesh = mesh_from_depth_maps(depth_maps, valids, poses, intr, rgbs,
-                                    decimate=cfg.decimate, log=log)
+                                    decimate=cfg.decimate, log=log, device=dev)
     if cfg.refine_mesh and len(mesh["faces"]):
         # photometric refinement (openMVS RefineMesh stand-in, ref: MVS.cpp:157-172)
         from sfm_mvs_pipeline_tpu_torch.mvs.refine import refine_mesh_photometric
 
         with stage("refine"):
             mesh["vertices"] = refine_mesh_photometric(
-                mesh["vertices"], mesh["faces"], poses, intr, grays, log=log)
+                mesh["vertices"], mesh["faces"], poses, intr, grays, log=log, device=dev)
     path = os.path.join(out_dir, "mesh_dense.ply")
     if cfg.texture and len(mesh["faces"]):
         # texture atlas + textured PLY (openMVS TextureMesh, gated by

@@ -100,13 +100,15 @@ def refine_mesh_photometric(
     rel_range: float = 0.5,
     patch_radius: int = 1,
     log=lambda *a: None,
+    device=None,
 ) -> np.ndarray:
-    """Returns refined vertex positions (same shape as `vertices`)."""
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    """Returns refined vertex positions (same shape as `vertices`); the
+    scoring runs on `device` (default: the card; raises without one)."""
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
 
     if len(vertices) == 0 or len(faces) == 0 or len(poses) < 2:
         return vertices
-    dev = default_device()
+    dev = resolve_device(device)
 
     normals = vertex_normals(vertices, faces)
     scores = _vertex_view_scores(vertices, normals, poses, intr, grays.shape[1:], dev)

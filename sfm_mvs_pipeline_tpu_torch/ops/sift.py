@@ -194,6 +194,32 @@ def _find_octave_extrema(
 
 
 # ------------------------------------------------------- orientation + desc
+def _bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of an (H, W) image at float coordinates x, y (any
+    shape), zero padding outside the image: the JAX package's
+    ops/sift.py::_bilinear on one plane, corners summed in its order."""
+    h, w = img.shape[-2:]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    flat = img.reshape(-1)
+
+    def at(yy, xx):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        v = flat[yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)]
+        return torch.where(inside, v, torch.zeros_like(v))
+
+    return (
+        at(y0i, x0i) * (1 - fx) * (1 - fy)
+        + at(y0i, x0i + 1) * fx * (1 - fy)
+        + at(y0i + 1, x0i) * (1 - fx) * fy
+        + at(y0i + 1, x0i + 1) * fx * fy
+    )
+
+
 _ORI_GRID = 8  # samples per side for the orientation histogram
 _DESC_GRID = 16  # samples per side for the descriptor
 _N_ORI_BINS = 36

@@ -452,16 +452,16 @@ def run_bundle_adjustment(
     verbose: bool = False,
 ) -> dict:
     """LM bundle adjustment. Inputs are host numpy arrays; the work runs in
-    `dtype` on `device` (default: the card when present). Optimises every
+    `dtype` on `device` (default: the card; raises without one). Optimises every
     point, every pose with pose_free = 1 and the unmasked intrinsics, like
     BundleAdjustment::doBundleAdjustment. Returns the updated arrays (in
     the input dtypes) and cost, iterations, converged, lambda, table_kind."""
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
 
     cfg = config or BAConfig()
     if cfg.solver not in ("device", "host"):
         raise ValueError(f"unknown BA solver {cfg.solver!r} (expected device|host)")
-    dev = torch.device(device) if device is not None else default_device()
+    dev = resolve_device(device)
     n_shots = poses.shape[0]
     n_cams = intr.shape[0]
     P = points.shape[0]

@@ -3,9 +3,13 @@
 Port of sfm_mvs_pipeline_tpu/sfm/incremental.py, after SfM::reconstructScene
 (ref: SfM.cpp:143-381):
 
-  match pairs (kernel K1) -> homography ratios -> baseline pair ->
+  match pairs (kernel K1, or K1x in exact mode) -> homography ratios -> baseline pair ->
   loop: pick the shot with most 3D-2D links -> PnP -> triangulate the
   adjoining pairs -> merge into tracks -> bundle adjust -> repeat
+
+Unlike the JAX package, a start (baseline pair and loop) whose bundle
+adjustment leaves bogus intrinsics is undone and started again with new
+RANSAC draws (_BASELINE_ATTEMPTS).
 
 The driver is Python; every inner computation is one batched call on the
 device, with the pair axis written out where the JAX package uses vmap.
@@ -15,6 +19,8 @@ bookkeeping is host numpy (models/scene.py).
 
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 
 import numpy as np
@@ -58,13 +64,49 @@ class SfMConfig:
     distinct_matches: bool = False
     matcher_backend: str = "auto"
     matcher_method: str = "bf"
-    # the JAX package's TPU-only 3-term split; here the same fp32 kernel
+    # -Pmatch-precision=exact: the bf16x3 split of kernel K1x (dot within
+    # 4.6e-5 (|q|^2 + |t|^2) of exact, 3x the tensor-core work)
     exact_match: bool = False
-    # ORB/Hamming descriptors: not yet ported
+    # descriptors are a +-1 binary (ORB/Hamming) expansion at D = 256: K1
+    # matches them in fp32, where every dot product is an integer and exact
+    # (the JAX package's bf16 path is exact for the same reason), so they go
+    # to K1 whatever exact_match says, as bf16 ones do in the JAX package
     binary_descriptors: bool = False
     ba: BAConfig = dataclasses.field(default_factory=BAConfig)
     ba_every_view: bool = True  # the reference runs BA after every added view
     seed: int = 0
+
+
+# A camera whose focal length leaves [0.1, 10] x the image's larger side, or
+# any of whose distortion coefficients exceeds 1 in magnitude, is bogus
+# (COLMAP's IncrementalMapper min/max_focal_length_ratio and max_extra_param).
+_FOCAL_RATIO_RANGE = (0.1, 10.0)
+_MAX_DISTORTION = 1.0
+# starts of the reconstruction: a start whose bundle adjustment over at least
+# _GUARD_MIN_VIEWS views leaves bogus intrinsics, or that triangulates no
+# baseline pair, is undone and started again with the generator's next
+# draws; a baseline pair that failed _TRIES_PER_PAIR starts is skipped; the
+# _BASELINE_ATTEMPTS-th start skips none, is not held to the check and
+# stands. The two-view adjustment is not held to it either: focal length and
+# distortion are barely observable from two views, and the next adjustments
+# pull a sound start back.
+_BASELINE_ATTEMPTS = 6
+_TRIES_PER_PAIR = 3
+_GUARD_MIN_VIEWS = 3
+# the Scene fields a start grows (what an abandoned start resets)
+_GROWN = ("intrinsics", "poses", "recovered", "points", "point_valid", "colors", "obs_point",
+          "obs_shot", "obs_feat", "obs_uv", "obs_w", "point_of_feat", "point_alias")
+
+
+def bogus_intrinsics(intrinsics: np.ndarray, max_dim: float) -> np.ndarray:
+    """(C,) bool: which rows of the (C, 7) intrinsics are bogus."""
+    ratio = intrinsics[:, 0] / max_dim
+    return ((ratio < _FOCAL_RATIO_RANGE[0]) | (ratio > _FOCAL_RATIO_RANGE[1])
+            | (np.abs(intrinsics[:, 3:]) > _MAX_DISTORTION).any(axis=1))
+
+
+class _BogusStart(Exception):
+    """A bundle adjustment of a guarded start left bogus intrinsics."""
 
 
 # homography-ratio pairs per batched RANSAC call (bounds the (chunk, K, F)
@@ -103,14 +145,12 @@ def reconstruct(
     """Run incremental SfM on a scene with extracted features.
 
     pairs: (P, 2) candidate pairs from a pair policy. The SfM state runs in
-    `dtype` on `device` (default: the card when present). Mutates `scene`
-    in place; returns a stats dict."""
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    `dtype` on `device` (default: the card; raises without one). Mutates
+    `scene` in place; returns a stats dict."""
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
 
     cfg = config or SfMConfig()
-    if cfg.binary_descriptors:
-        raise NotImplementedError("binary (ORB) descriptor matching is not yet ported")
-    dev = torch.device(device) if device is not None else default_device()
+    dev = resolve_device(device)
     S, F = scene.feat_valid.shape
     w_img, h_img = scene.image_size
     max_dim = float(max(w_img, h_img))
@@ -133,7 +173,7 @@ def reconstruct(
         backend=cfg.matcher_backend,
         method=cfg.matcher_method,
         with_distance=True,
-        exact=cfg.exact_match,
+        exact=cfg.exact_match and not cfg.binary_descriptors,
     )
     midx_d, mmask_d = midx, mmask
     midx = midx.cpu().numpy()
@@ -166,9 +206,8 @@ def reconstruct(
             q = np.nonzero(mmask[k_])[0]
             pair_matches[(int(a), int(b))] = (q.astype(np.int32), midx[k_][q], mdist[k_][q])
 
-    queue = {(int(a), int(b)) for k_, (a, b) in enumerate(pairs) if live[k_]}
-    done_pairs, failed_pairs = [], []
     stats = {"baseline": None, "ba_runs": 0, "views": 0}
+    guard = False  # run_ba raises _BogusStart on bogus intrinsics while set
 
     def run_ba():
         nonlocal intr_d
@@ -190,6 +229,9 @@ def reconstruct(
             dtype=dtype,
             device=dev,
         )
+        if (guard and scene.recovered.sum() >= _GUARD_MIN_VIEWS
+                and bogus_intrinsics(out["intrinsics"], max_dim).any()):
+            raise _BogusStart(np.round(out["intrinsics"][:, :5], 3).tolist())
         scene.points = out["points"]
         scene.poses = out["poses"]
         scene.intrinsics = out["intrinsics"]
@@ -332,124 +374,159 @@ def reconstruct(
                 n_fused += 1
         return n_new, int(ext_a.sum() + ext_b.sum()) + n_fused
 
-    # ---- 3. baseline pair (ref: SfM.cpp:176-245)
-    order = [
-        k_
-        for k_ in np.argsort(ratios, kind="stable")
-        if live[k_]
-        and ratios[k_] >= cfg.min_homography_inlier_ratio
-        and counts[k_] >= cfg.baseline_min_matches
-    ]
-    if not order:  # fall back: any live pair ordered by ratio
-        order = [k_ for k_ in np.argsort(ratios, kind="stable") if live[k_] and ratios[k_] >= 0]
-    baseline_found = False
-    # speculative batch: pose + triangulation for up to 8 candidates in one
-    # call; the host walks the results in order
-    for start in range(0, len(order), 8):
-        chunk = order[start : start + 8]
-        cand_pairs = [(int(pairs[k_][0]), int(pairs[k_][1])) for k_ in chunk]
-        pose_rel_c, _, pts_c, keep_c, n_inl_c, masks_c = pairs_fused(
-            cand_pairs, use_rel=True, thresh=thr_base
-        )
-        for j, (k_, (a, b)) in enumerate(zip(chunk, cand_pairs)):
-            log(f"trying baseline pair ({a}, {b}) ratio={ratios[k_]:.3f}")
-            pose_ratio = n_inl_c[j] / max(masks_c[j].sum(), 1)
-            if pose_ratio < cfg.min_pose_inlier_ratio:
-                log(f"pose inlier ratio too low: {pose_ratio:.3f}")
-                continue
-            scene.poses[a] = 0.0
-            scene.poses[b] = pose_rel_c[j]
-            scene.recovered[a] = True
-            scene.recovered[b] = True
-            n_new, _ = merge_pair_points(a, b, pts_c[j], keep_c[j])
-            log(f"baseline ({a}, {b}): {n_new} points")
-            queue.discard((a, b))
-            done_pairs.append((a, b))
-            stats["baseline"] = (a, b)
-            stats["views"] = 2
-            baseline_found = True
-            break
-        if baseline_found:
-            break
-    if not baseline_found:
-        log("no baseline pair could be triangulated")
-        return stats
-    run_ba()
-
-    # ---- 4. incremental loop (ref: SfM.cpp:247-375)
-    while queue:
-        remaining_shots = sorted({s for p in queue for s in p if not scene.recovered[s]})
-        if not remaining_shots:
-            break
-        best_shot, best_n, best_corr = -1, -1, None
-        for s in remaining_shots:
-            pids, fids, uv = scene.find_2d3d(s, pair_matches)
-            if len(pids) > best_n:
-                best_shot, best_n, best_corr = s, len(pids), (pids, fids, uv)
-        if best_n <= 0:
-            break
-        s = best_shot
-        pids, fids, uv = best_corr
-        log(f"registering shot {s} with {best_n} 3D-2D correspondences")
-
-        # PnP (ref: findCameraPoseFrom3d2dMatch, SfM.cpp:478)
-        X = torch.as_tensor(scene.points[pids], dtype=dtype, device=dev)
-        U = torch.as_tensor(uv, dtype=dtype, device=dev)
-        V = torch.ones(len(pids), dtype=torch.bool, device=dev)
-        intr_s = intr_d[int(scene.cam_of_shot[s])]
-        try:
-            pose, inl, ratio = solve_pnp_ransac(gen, X, U, intr_s, V, thr_pose, k_hyp=256)
-            ratio = float(ratio)
-        except torch.linalg.LinAlgError as e:
-            log(f"PnP failed: {e}")
-            ratio = -1.0
-        if ratio < cfg.min_pose_inlier_ratio:
-            log(f"pose inlier ratio too low ({ratio:.3f}); dropping shot {s}")
-            for p in [p for p in queue if s in p]:
-                queue.discard(p)
-                failed_pairs.append(p)
-            continue
-        scene.poses[s] = pose.cpu().numpy().astype(np.float64)
-        scene.recovered[s] = True
-        stats["views"] += 1
-
-        # register the PnP inlier correspondences as observations of the new
-        # view (one per feature, untracked feature, live point), so BA
-        # constrains the new pose even when adjoining pairs contribute little
-        sel = np.nonzero(inl.cpu().numpy())[0]
-        if len(sel):
-            p_sel = np.asarray(pids)[sel]
-            f_sel = np.asarray(fids)[sel]
-            f_sel, first = np.unique(f_sel, return_index=True)
-            p_sel = p_sel[first]
-            ok = scene.point_valid[p_sel] & (scene.point_of_feat[s, f_sel] < 0)
-            if ok.any():
-                scene.add_observations(
-                    p_sel[ok], np.full(int(ok.sum()), s), f_sel[ok],
-                    scene.keypoints[s, f_sel[ok]],
-                )
-
-        # adjoining recovered pairs (ref: SfM.cpp:333-371), in one call
-        adjoining = [
-            p for p in sorted(queue)
-            if s in p and scene.recovered[p[0]] and scene.recovered[p[1]]
+    def grow(skip: set) -> bool:
+        """One start: the baseline pair (pairs in `skip` excluded), then the
+        incremental loop. False when no baseline pair triangulates."""
+        # ---- 3. baseline pair (ref: SfM.cpp:176-245)
+        order = [
+            k_
+            for k_ in np.argsort(ratios, kind="stable")
+            if live[k_]
+            and tuple(int(v) for v in pairs[k_]) not in skip
+            and ratios[k_] >= cfg.min_homography_inlier_ratio
+            and counts[k_] >= cfg.baseline_min_matches
         ]
-        if adjoining:
-            _, _, pts_c, keep_c, _, _ = pairs_fused(adjoining, use_rel=False, thresh=thr_base)
-            for j, (a, b) in enumerate(adjoining):
-                n_new, n_ext = merge_pair_points(a, b, pts_c[j], keep_c[j])
-                log(f"pair ({a}, {b}): +{n_new} points, +{n_ext} track extensions")
+        if not order:  # fall back: any live pair ordered by ratio
+            order = [k_ for k_ in np.argsort(ratios, kind="stable") if live[k_] and ratios[k_] >= 0
+                     and tuple(int(v) for v in pairs[k_]) not in skip]
+        baseline_found = False
+        # speculative batch: pose + triangulation for up to 8 candidates in one
+        # call; the host walks the results in order
+        for start in range(0, len(order), 8):
+            chunk = order[start : start + 8]
+            cand_pairs = [(int(pairs[k_][0]), int(pairs[k_][1])) for k_ in chunk]
+            pose_rel_c, _, pts_c, keep_c, n_inl_c, masks_c = pairs_fused(
+                cand_pairs, use_rel=True, thresh=thr_base
+            )
+            for j, (k_, (a, b)) in enumerate(zip(chunk, cand_pairs)):
+                log(f"trying baseline pair ({a}, {b}) ratio={ratios[k_]:.3f}")
+                pose_ratio = n_inl_c[j] / max(masks_c[j].sum(), 1)
+                if pose_ratio < cfg.min_pose_inlier_ratio:
+                    log(f"pose inlier ratio too low: {pose_ratio:.3f}")
+                    continue
+                scene.poses[a] = 0.0
+                scene.poses[b] = pose_rel_c[j]
+                scene.recovered[a] = True
+                scene.recovered[b] = True
+                n_new, _ = merge_pair_points(a, b, pts_c[j], keep_c[j])
+                log(f"baseline ({a}, {b}): {n_new} points")
                 queue.discard((a, b))
                 done_pairs.append((a, b))
-        # collapse unlinked duplicate tracks by 3D distance
-        # (mergePointcloudElement, Scene.cpp:435-468)
-        n_spatial = scene.merge_close_points(cfg.point_merge_distance)
-        if n_spatial:
-            log(f"spatial merge: {n_spatial} duplicate tracks collapsed")
-        if cfg.ba_every_view:
-            run_ba()
-    if not cfg.ba_every_view:
+                stats["baseline"] = (a, b)
+                stats["views"] = 2
+                baseline_found = True
+                break
+            if baseline_found:
+                break
+        if not baseline_found:
+            log("no baseline pair could be triangulated")
+            return False
         run_ba()
+
+        # ---- 4. incremental loop (ref: SfM.cpp:247-375)
+        while queue:
+            remaining_shots = sorted({s for p in queue for s in p if not scene.recovered[s]})
+            if not remaining_shots:
+                break
+            best_shot, best_n, best_corr = -1, -1, None
+            for s in remaining_shots:
+                pids, fids, uv = scene.find_2d3d(s, pair_matches)
+                if len(pids) > best_n:
+                    best_shot, best_n, best_corr = s, len(pids), (pids, fids, uv)
+            if best_n <= 0:
+                break
+            s = best_shot
+            pids, fids, uv = best_corr
+            log(f"registering shot {s} with {best_n} 3D-2D correspondences")
+
+            # PnP (ref: findCameraPoseFrom3d2dMatch, SfM.cpp:478)
+            X = torch.as_tensor(scene.points[pids], dtype=dtype, device=dev)
+            U = torch.as_tensor(uv, dtype=dtype, device=dev)
+            V = torch.ones(len(pids), dtype=torch.bool, device=dev)
+            intr_s = intr_d[int(scene.cam_of_shot[s])]
+            try:
+                pose, inl, ratio = solve_pnp_ransac(gen, X, U, intr_s, V, thr_pose, k_hyp=256)
+                ratio = float(ratio)
+            except torch.linalg.LinAlgError as e:
+                log(f"PnP failed: {e}")
+                ratio = -1.0
+            if ratio < cfg.min_pose_inlier_ratio:
+                log(f"pose inlier ratio too low ({ratio:.3f}); dropping shot {s}")
+                for p in [p for p in queue if s in p]:
+                    queue.discard(p)
+                    failed_pairs.append(p)
+                continue
+            scene.poses[s] = pose.cpu().numpy().astype(np.float64)
+            scene.recovered[s] = True
+            stats["views"] += 1
+
+            # register the PnP inlier correspondences as observations of the new
+            # view (one per feature, untracked feature, live point), so BA
+            # constrains the new pose even when adjoining pairs contribute little
+            sel = np.nonzero(inl.cpu().numpy())[0]
+            if len(sel):
+                p_sel = np.asarray(pids)[sel]
+                f_sel = np.asarray(fids)[sel]
+                f_sel, first = np.unique(f_sel, return_index=True)
+                p_sel = p_sel[first]
+                ok = scene.point_valid[p_sel] & (scene.point_of_feat[s, f_sel] < 0)
+                if ok.any():
+                    scene.add_observations(
+                        p_sel[ok], np.full(int(ok.sum()), s), f_sel[ok],
+                        scene.keypoints[s, f_sel[ok]],
+                    )
+
+            # adjoining recovered pairs (ref: SfM.cpp:333-371), in one call
+            adjoining = [
+                p for p in sorted(queue)
+                if s in p and scene.recovered[p[0]] and scene.recovered[p[1]]
+            ]
+            if adjoining:
+                _, _, pts_c, keep_c, _, _ = pairs_fused(adjoining, use_rel=False, thresh=thr_base)
+                for j, (a, b) in enumerate(adjoining):
+                    n_new, n_ext = merge_pair_points(a, b, pts_c[j], keep_c[j])
+                    log(f"pair ({a}, {b}): +{n_new} points, +{n_ext} track extensions")
+                    queue.discard((a, b))
+                    done_pairs.append((a, b))
+            # collapse unlinked duplicate tracks by 3D distance
+            # (mergePointcloudElement, Scene.cpp:435-468)
+            n_spatial = scene.merge_close_points(cfg.point_merge_distance)
+            if n_spatial:
+                log(f"spatial merge: {n_spatial} duplicate tracks collapsed")
+            if cfg.ba_every_view:
+                run_ba()
+        if not cfg.ba_every_view:
+            run_ba()
+
+        return True
+
+    # a wrong two-view start (the twin of a planar scene's homography
+    # decomposition, a reversed baseline), which bundle adjustment fits by
+    # bending the lens model, is undone and started again (COLMAP's
+    # bogus-camera check and retried initialisation)
+    fresh = {k: copy.deepcopy(getattr(scene, k)) for k in _GROWN}
+    failed_starts = collections.Counter()
+    attempt = 0
+    while True:
+        attempt += 1
+        guard = attempt < _BASELINE_ATTEMPTS
+        skip = {p for p, n in failed_starts.items() if n >= _TRIES_PER_PAIR} if guard else set()
+        for k, v in fresh.items():
+            setattr(scene, k, copy.deepcopy(v))
+        intr_d = torch.as_tensor(scene.intrinsics, dtype=dtype, device=dev)
+        stats.update(baseline=None, ba_runs=0, views=0, attempts=attempt)
+        queue = {(int(a), int(b)) for k_, (a, b) in enumerate(pairs) if live[k_]}
+        done_pairs, failed_pairs = [], []
+        try:
+            if grow(skip):
+                break
+            if not guard:
+                return stats
+            log("no baseline pair triangulated; starting again with new draws")
+        except _BogusStart as e:
+            log(f"start from baseline {stats['baseline']} abandoned: bundle adjustment left "
+                f"bogus intrinsics {e}")
+            failed_starts[stats["baseline"]] += 1
 
     stats["points"] = scene.n_points
     stats["observations"] = scene.n_obs

@@ -10,8 +10,8 @@ Files are binary little-endian like the reference (endianness probe:
 src/photogrammetrie/util/Endians.cpp:8-13 — numpy's '<' dtypes make that
 explicit here).
 
-Port of sfm_mvs_pipeline_tpu/utils/ply.py on its numpy path; the native
-C++ writer tier is not ported yet.
+Port of sfm_mvs_pipeline_tpu/utils/ply.py: the writers take the native
+C++ tier (sfm_mvs_pipeline_tpu_torch/native) when it is built, else numpy.
 """
 
 from __future__ import annotations
@@ -25,6 +25,13 @@ def write_ply_points(
     colors: np.ndarray | None = None,  # (N, 3|4) uint8
     normals: np.ndarray | None = None,  # (N, 3)
 ) -> None:
+    # native C++ writer fast path (alpha stays on the numpy path: the
+    # native writer emits rgb only)
+    if colors is None or colors.shape[1] == 3:
+        from sfm_mvs_pipeline_tpu_torch import native
+
+        if native.write_ply_native(path, points, colors, normals):
+            return
     n = len(points)
     header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
     fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
@@ -68,6 +75,10 @@ def write_ply_mesh(
     colors: np.ndarray | None = None,  # (V, 3) uint8
     normals: np.ndarray | None = None,
 ) -> None:
+    from sfm_mvs_pipeline_tpu_torch import native
+
+    if native.write_ply_native(path, vertices, colors, normals, np.asarray(faces)):
+        return
     v = len(vertices)
     fc = len(faces)
     header = ["ply", "format binary_little_endian 1.0", f"element vertex {v}"]

@@ -1,10 +1,11 @@
-"""Optional wall timers around the dense stage's parts.
+"""Optional wall timers around the CLI's stages (features, sfm, dense) and
+the dense stage's parts.
 
 `stage(name)` is a no-op unless `enable()` was called. When enabled, it
 synchronises the card before and after the block, so each total is the
 wall of that part including its device work; the synchronisation itself
 slows a run, so only a measurement turns it on (chip_smoke.py's dense
-phase). Stages of the same name add up; `report()` returns the totals and
+and ORB phases). Stages of the same name add up; `report()` returns the totals and
 call counts.
 """
 

@@ -1,13 +1,12 @@
-"""Statistics suite: descriptive stats, reprojection CSVs, resource sampler.
-
-The nearest-neighbour statistics of -Prun=pcl-stats come with that
-subcommand's port.
+"""Statistics suite: descriptive stats, reprojection/NN CSVs, resource sampler.
 
 Replaces, with CSV-format parity:
   * MathUtils::calculateStatistics (min/max/mean/variance(n-1)/stddev/median;
     ref: src/photogrammetrie/util/MathUtils.h:53-90)
   * SceneUtils reprojection-error stats + histogram CSVs
     (ref: src/photogrammetrie/util/SceneUtils.cpp:28-144)
+  * PclUtils nearest-neighbor stats/histogram CSVs + quality-colored PLY
+    (ref: src/photogrammetrie/util/PclUtils.cpp:91-399)
   * AppStatistics 1 s resource sampler -> app.stat.csv
     (ref: src/cli/util/AppStatistics.cpp:70-150)
 """
@@ -105,6 +104,55 @@ def write_reprojection_stats(scene, out_dir: str, prefix: str = "reprojectionerr
     _write_histogram_csv(
         os.path.join(out_dir, f"{prefix}.histogram.csv"), errs, res
     )
+    return st
+
+
+# ------------------------------------------------------------ NN distances
+def knn_distances(points: np.ndarray, k: int = 1, chunk: int = 2048) -> np.ndarray:
+    """Distance to the k-th nearest neighbor per point. Uses the native C++
+    kd-tree (O(N log N), OpenMP queries — native/src/native.cpp, the PCL
+    KdTreeFLANN equivalent) when built, with a chunked brute-force numpy
+    fallback."""
+    n = len(points)
+    if n <= k:
+        return np.zeros(n)
+    from sfm_mvs_pipeline_tpu_torch import native
+
+    d = native.knn_kth_distance(np.asarray(points, np.float32), k)
+    if d is not None:
+        return d
+    out = np.empty(n)
+    pts = points.astype(np.float32)
+    for s in range(0, n, chunk):
+        blk = pts[s : s + chunk]
+        d2 = ((blk[:, None] - pts[None]) ** 2).sum(-1)
+        idx = np.arange(s, min(s + chunk, n))
+        d2[np.arange(len(blk)), idx] = np.inf  # self
+        out[s : s + chunk] = np.sqrt(np.partition(d2, k - 1, axis=1)[:, k - 1])
+    return out
+
+
+def write_pcl_stats(points: np.ndarray, stats_path: str, neighbors_path: str,
+                    quality_path: str, label: str, faces: np.ndarray | None = None) -> dict:
+    """The pcl-stats outputs (PclStatsCli.cpp:47-63): NN-distance stats CSV,
+    neighbor histogram CSV and the quality-colored PLY, linear red (largest
+    NN distance) to blue (smallest); a mesh keeps its faces, like the
+    reference's writeToNeighborPLY (PclUtils.cpp:91-265)."""
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_mesh, write_ply_points
+
+    d = knn_distances(points)
+    st = calculate_statistics(d)
+    _write_stats_csv(stats_path, st, label)
+    res = st["variance"] if st["variance"] > 0 else 1.0
+    _write_histogram_csv(neighbors_path, d, res)
+    if len(d):
+        t = (d - d.min()) / max(d.max() - d.min(), 1e-12)
+        colors = np.stack([(t * 255).astype(np.uint8), np.zeros(len(d), np.uint8),
+                           ((1 - t) * 255).astype(np.uint8)], axis=1)
+        if faces is not None and len(faces):
+            write_ply_mesh(quality_path, points, faces, colors=colors)
+        else:
+            write_ply_points(quality_path, points, colors)
     return st
 
 

@@ -45,7 +45,7 @@ def insel_run(tmp_path_factory):
         img = cv2.imread(os.path.join(INSEL, name))
         cv2.imwrite(str(data / name), cv2.resize(img, (240, 135), interpolation=cv2.INTER_AREA))
     out = tmp / "out_t"
-    rc = t_main(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}",
+    rc = t_main(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pdevice=cpu",
                  "-Pfeature-limit=512", "-Ploglevel=4", *DENSE_FLAGS])
     assert rc == 0
     return tmp, out
@@ -78,7 +78,7 @@ def test_run_mvs_port_vs_jax(insel_run, monkeypatch):
     kw = dict(use_sgm=True, mesh=True, texture=True, keep_artifacts=True)
     stage_timer.enable()
     try:
-        res_t = TPIPE.run_mvs(scene_t, str(out_t), TPIPE.MVSConfig(**kw))
+        res_t = TPIPE.run_mvs(scene_t, str(out_t), TPIPE.MVSConfig(**kw), device="cpu")
         stages = stage_timer.report()
     finally:
         stage_timer.enable(False)
@@ -146,7 +146,7 @@ def test_resume_stash_is_removed(insel_run, monkeypatch):
 
             assert j_main(argv) == 0
         else:
-            assert main(argv + ["--dense", "--sgm"]) == 0
+            assert main(argv + ["--dense", "--sgm", "-Pdevice=cpu"]) == 0
         runs[tag] = sorted(p for p in os.listdir(stash_root) if p.startswith("sfm_resume_"))
         for p in runs[tag]:
             shutil.rmtree(stash_root / p)

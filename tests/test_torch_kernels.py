@@ -1,12 +1,18 @@
-"""Kernels K1 (csrc/match_kernel.cu), K2a and K2b (csrc/sgm_kernel.cu) and
-K3 (csrc/pm_kernel.cu) against their plain PyTorch versions on the card. Needs a CUDA card and
+"""Kernels K1 (csrc/match_kernel.cu), K1x (csrc/match_exact_kernel.cu), K2a
+and K2b (csrc/sgm_kernel.cu) and K3 (csrc/pm_kernel.cu) against their
+plain PyTorch versions on the card. Needs a CUDA card and
 nvcc; skipped elsewhere. This file imports no JAX, so on the card it runs
 alone with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerances: 0. K1 on integer-valued descriptors (every product and sum is
-exact in fp32), which also pins the lowest-index tie rule. K2a and K2b are
+exact in fp32), which also pins the lowest-index tie rule. K1x likewise
+on integer-valued descriptors (the bf16 lo parts are 0), where it also
+equals K1; on continuous ones its distances are within
+1e-5 (|q|^2 + |t|^2) of its plain version (the products are exact in fp32,
+the order of the fp32 sums differs) and idx is equal wherever best and
+second lie farther apart than that. K2a and K2b are
 mins, adds and subtracts in the plain versions' order, so they equal the
 plain versions bit for bit, on the card and on the CPU alike. K3 rounds
 every multiply, add, divide and square root on its own, in the plain
@@ -60,6 +66,77 @@ def test_k1_rejects_bad_operands():
         K.two_nn_batch_fused(d, v, p.long())
     with pytest.raises(ValueError):
         K.two_nn_batch_fused(d.transpose(1, 2).contiguous().transpose(1, 2), v, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,F,D", [(3, 200, 128), (2, 1000, 96), (2, 333, 256), (4, 64, 7)])
+def test_k1x_bit_equal_to_plain_and_k1_on_integers(S, F, D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
+
+    rng = np.random.default_rng(S * 1000 + F + D + 1)
+    d = rng.integers(0, 256, size=(S, F, D)).astype(np.float32)
+    for s in range(S):  # duplicated rows: exact ties
+        d[s, rng.integers(0, F, F // 8)] = d[s, rng.integers(0, F, F // 8)]
+    v = rng.random((S, F)) > 0.1
+    pairs = np.array([(a, b) for a in range(S) for b in range(S) if a != b], np.int32)
+    dt, vt, pt = (torch.from_numpy(x).cuda() for x in (d, v, pairs))
+    before = K.two_nn_exact_batch.launches
+    out_x = K.two_nn_exact_batch(dt, vt, pt)
+    out_p = two_nn_batch(dt, vt, pt, nn=two_nn_exact)
+    out_1 = K.two_nn_batch_fused(dt, vt, pt)
+    torch.cuda.synchronize()
+    assert K.two_nn_exact_batch.launches == before + 1
+    for a, b, c in zip(out_x, out_p, out_1):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_k1x_continuous_within_tolerance():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
+
+    S, F, D = 3, 700, 128
+    rng = np.random.default_rng(7)
+    base = np.abs(rng.normal(size=(F, D))).astype(np.float32)
+    d = np.abs(np.stack([base + rng.normal(size=(F, D)).astype(np.float32) * (0.1 + 0.05 * s)
+                         for s in range(S)])).astype(np.float32)
+    v = rng.random((S, F)) > 0.05
+    pairs = np.array([(0, 1), (1, 2), (2, 0)], np.int32)
+    dt, vt, pt = (torch.from_numpy(x).cuda() for x in (d, v, pairs))
+    ix, bx, sx = K.two_nn_exact_batch(dt, vt, pt)
+    ip, bp, sp = two_nn_batch(dt, vt, pt, nn=two_nn_exact)
+    n = (dt * dt).sum(-1)
+    pq, ptt = pt[:, 0].long(), pt[:, 1].long()
+    vq = vt[pq]
+    tol_b = 1e-5 * (n[pq] + torch.gather(n[ptt], 1, ip.long()))
+    tol_s = 1e-5 * (n[pq] + n[ptt].amax(dim=1, keepdim=True))
+    assert bool(((bx - bp).abs() <= tol_b)[vq].all())
+    assert bool(((sx - sp).abs() <= tol_s).all())
+    apart = vq & ((sp - bp) > tol_b + tol_s)
+    assert int(apart.sum()) > 0.9 * int(vq.sum())
+    assert torch.equal(ix[apart], ip[apart])
+
+
+@pytest.mark.gpu
+def test_k1x_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+
+    d = torch.zeros((2, 64, 128), device="cuda")
+    v = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    p = torch.tensor([[0, 1]], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        K.two_nn_exact_batch(d.double(), v, p)
+    with pytest.raises(ValueError):
+        K.two_nn_exact_batch(d, v, p.long())
+    with pytest.raises(ValueError):
+        K.two_nn_exact_batch(d, v.cpu(), p)
 
 
 def _sgm_inputs(h, w, d, seed):

@@ -121,13 +121,18 @@ def test_ratio_test_and_distinct_filter(rng):
 
 def test_match_pairs_batch_vs_match_pair_and_unported_options(rng):
     """One pair through the port's batched path equals the JAX package's
-    single-pair match_pair; FLANN and other backends refuse."""
+    single-pair match_pair; FLANN runs the same exact brute force (the JAX
+    package's TPU branch), other backends refuse and unknown methods raise."""
     d, v = _int_descs_with_ties(rng, 2, 100)
-    bi, m = (x[0] for x in TM.match_pairs_batch(
-        torch.from_numpy(d), torch.from_numpy(v), torch.tensor([[0, 1]], dtype=torch.int32)))
+    pair = torch.tensor([[0, 1]], dtype=torch.int32)
+    bi, m = (x[0] for x in TM.match_pairs_batch(torch.from_numpy(d), torch.from_numpy(v), pair))
     bi_j, m_j = JM.match_pair(*(jnp.asarray(x) for x in (d[0], d[1], v[0], v[1])), backend="jnp")
     np.testing.assert_array_equal(m.numpy(), np.asarray(m_j))
     np.testing.assert_array_equal(bi.numpy()[m.numpy()], np.asarray(bi_j)[np.asarray(m_j)])
-    for kw in ({"method": "flann"}, {"backend": "jnp"}):
-        with pytest.raises(NotImplementedError):
-            TM.match_pairs_batch(torch.from_numpy(d), torch.from_numpy(v), torch.tensor([[0, 1]]), **kw)
+    bi_f, m_f = (x[0] for x in TM.match_pairs_batch(torch.from_numpy(d), torch.from_numpy(v), pair,
+                                                    method="flann"))
+    assert torch.equal(bi_f, bi) and torch.equal(m_f, m)
+    with pytest.raises(NotImplementedError):
+        TM.match_pairs_batch(torch.from_numpy(d), torch.from_numpy(v), pair, backend="jnp")
+    with pytest.raises(ValueError):
+        TM.match_pairs_batch(torch.from_numpy(d), torch.from_numpy(v), pair, method="lsh")

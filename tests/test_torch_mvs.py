@@ -251,7 +251,7 @@ def test_mesh_texture_refine(scene):
     valids = np.ones_like(gt, bool)
     valids[:, :5] = False
     rgbs = np.repeat((grays * 255).astype(np.uint8)[..., None], 3, axis=-1)
-    mt = TM.mesh_from_depth_maps(gt, valids, poses, intr, rgbs)
+    mt = TM.mesh_from_depth_maps(gt, valids, poses, intr, rgbs, device="cpu")
     mj = JM.mesh_from_depth_maps(gt, valids, poses, intr, rgbs)
     np.testing.assert_array_equal(mt["faces"], mj["faces"])
     np.testing.assert_allclose(mt["vertices"], mj["vertices"], atol=1e-4)
@@ -260,7 +260,7 @@ def test_mesh_texture_refine(scene):
     tj = JT.build_texture_atlas(V, Fc, poses, intr, rgbs)
     for k in ("atlas", "uv", "face_view"):
         np.testing.assert_array_equal(tt[k], tj[k])
-    rt = TRF.refine_mesh_photometric(V, Fc, poses, intr, grays)
+    rt = TRF.refine_mesh_photometric(V, Fc, poses, intr, grays, device="cpu")
     rj = JRF.refine_mesh_photometric(V, Fc, poses, intr, grays)
     same = np.all(np.abs(rt - rj) <= 1e-4, axis=1)
     assert same.mean() >= 0.99, same.mean()

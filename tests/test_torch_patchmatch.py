@@ -373,6 +373,7 @@ def insel_pm(tmp_path_factory):
         cv2.imwrite(str(data / name), cv2.resize(img, (240, 135), interpolation=cv2.INTER_AREA))
     out = tmp / "out"
     rc = t_main(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=512",
+                 "-Pdevice=cpu",
                  "-Ploglevel=4", "--dense", "-Pdense-method=patchmatch", "--mesh", "--colored",
                  "--artifacts"])
     assert rc == 0
@@ -412,14 +413,14 @@ def test_run_mvs_patchmatch_vs_rect(insel_pm):
     stage_timer.enable()
     try:
         res_pm = TPIPE.run_mvs(scene, str(tmp), TPIPE.MVSConfig(method="patchmatch"),
-                               log=logs.append)
+                               log=logs.append, device="cpu")
         stages = stage_timer.report()
     finally:
         stage_timer.enable(False)
     assert "(PatchMatch, 96 planes)" in logs[0], logs[0]
     assert sum("(rect-PM)" in m for m in logs) == 3, logs
     assert stages["patchmatch"][1] == 6 and stages["consensus"][1] == 3, stages
-    res_rect = TPIPE.run_mvs(scene, str(tmp), TPIPE.MVSConfig(method="rect"))
+    res_rect = TPIPE.run_mvs(scene, str(tmp), TPIPE.MVSConfig(method="rect"), device="cpu")
     for i in range(3):
         d_p, v_p = res_pm["depth_maps"][i], res_pm["valids"][i]
         d_r, v_r = res_rect["depth_maps"][i], res_rect["valids"][i]

@@ -45,7 +45,8 @@ def test_insel_slice_port_vs_jax(tmp_path):
         img = cv2.imread(os.path.join(INSEL, name))
         cv2.imwrite(str(data / name), cv2.resize(img, (240, 135), interpolation=cv2.INTER_AREA))
     args = [f"-Pimage={data}", "-Pfeature-limit=512", "-Ploglevel=4", "--colored", "--stats"]
-    assert t_main(["-Prun=photogrammetrie", f"-Pout={tmp_path / 'out_t'}", *args]) == 0
+    assert t_main(["-Prun=photogrammetrie", f"-Pout={tmp_path / 'out_t'}", "-Pdevice=cpu",
+                   *args]) == 0
     assert j_main(["-Prun=photogrammetrie", f"-Pout={tmp_path / 'out_j'}", *args]) == 0
     for name in ("pointcloud_sparse.ply", "cameras_recovered.ply", "scene.npz",
                  "reprojectionerror.stat.csv"):
@@ -88,7 +89,7 @@ def test_synthetic_ground_truth_port(tmp_path, planar):
     data = tmp_path / "views"
     _, gt_R, gt_C = render_views(data, 8, 240, 320, 280.0, planar=planar)
     out = tmp_path / "out"
-    rc = t_main(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}",
+    rc = t_main(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pdevice=cpu",
                  "-Pfeature-limit=800", "-Pfeature-sequence=3", "-Ploglevel=4"])
     assert rc == 0
     scene = t_load(str(out / "scene.npz"))
@@ -102,11 +103,21 @@ def test_synthetic_ground_truth_port(tmp_path, planar):
 
 
 def test_unported_flags_exit_nonzero(tmp_path, capsys):
-    """Stages of later slices refuse with a plain message instead of doing
-    something else."""
-    base = ["-Prun=photogrammetrie", f"-Pimage={INSEL}", f"-Pout={tmp_path / 'o'}", "-Ploglevel=2"]
-    for extra in (["-Pfeature-detector=orb"], ["-Pfeature-matcher=flann"], ["-Pprofile=p"]):
-        assert t_main(base + extra) != 0
-        assert "not yet ported" in capsys.readouterr().out
-    assert t_main(["-Prun=pcl-stats"]) != 0
-    assert "not yet ported" in capsys.readouterr().out
+    """The flags that earlier slices refused (ORB, FLANN, -Pprofile=, and
+    -Prun=pcl-stats) now run on -Pdevice=cpu: rc 0, no "not yet ported"
+    message, a Chrome trace in the profile dir and the three pcl-stats
+    outputs. Unknown values still exit non-zero."""
+    out, prof = tmp_path / "o", tmp_path / "p"
+    base = ["-Prun=photogrammetrie", f"-Pimage={INSEL}", f"-Pout={out}", "-Ploglevel=2",
+            "-Pdevice=cpu", "-Pfeature-limit=512"]
+    assert t_main(base + ["-Pfeature-detector=orb", "-Pfeature-matcher=flann",
+                          f"-Pprofile={prof}"]) == 0
+    assert "not yet ported" not in capsys.readouterr().out
+    assert (prof / "trace.json").stat().st_size > 0
+    cloud = out / "pointcloud_sparse"
+    assert t_main(["-Prun=pcl-stats", f"-Pinput={cloud}.ply", "-Ploglevel=4"]) == 0
+    for ext in ("stats.csv", "neighbors.csv", "quality.ply"):
+        assert os.path.getsize(f"{cloud}.{ext}") > 0
+    assert "not yet ported" not in capsys.readouterr().out
+    assert t_main(base + ["-Pfeature-detector=surf"]) != 0
+    assert t_main([a for a in base if a != "-Pdevice=cpu"] + ["-Pdevice=tpu"]) != 0
