@@ -8,10 +8,16 @@ the CPU. Phases, each timed and each fatal on failure:
      (PatchMatch scoring) from sfm_mvs_pipeline_tpu_torch/csrc/, one nvcc
      process per source, started together, and the native C++ host tier
      with g++ beside them; prints the ptxas reports.
-  2. K1 against its plain PyTorch version on the card at the main path's
-     shape (12 shots x 8192 features x 128 dims, all 66 unordered pairs):
-     bit-equal idx / best^2 / second^2 and equal ratio-test masks; CUDA-event
-     times of both, median of warm runs.
+  2. K1 against its plain PyTorch version on the card, all 66 unordered
+     pairs of 12 shots, each route: (a) fp32 at the SIFT main path's shape
+     (8192 features x 128 dims, integers with ties), bit-equal idx /
+     best^2 / second^2 and equal ratio-test masks; (b) the same descriptors
+     at ORB-like prefix extents (8.7-11.9% of the slots valid); (c) bf16
+     +-1 descriptors at 8192 x 256, full extent (the tensor-core rate
+     alone), bit-equal; (d) bf16 at ORB-like prefix extents. (b) and (d)
+     under the extent contract (bit-equal at every valid query, best^2 =
+     BIG at every invalid one, equal ratio-test masks). CUDA-event times of
+     kernel and plain version, and each route's share of its bound.
   3. the fast-test: the port's CLI on sample_data/insel with the flags of
      run-scripts/fast-test.sh; 3/3 views, median reprojection < 1 px, the
      three output files, K1 launched.
@@ -36,8 +42,9 @@ the CPU. Phases, each timed and each fatal on failure:
      plain PyTorch version on the card at the 1080p render's rect shape:
      C = 6 candidate maps of (H, W) = (1080, 1920), r = 3, maxd as
      derive_max_disp gives it for the render, random rectified images and
-     an invalid band in in_n; bit-equal costs; CUDA-event medians of kernel
-     and plain version.
+     an invalid band in in_n; random and smooth candidates; the full form
+     and the parity form (both parities): bit-equal costs; CUDA-event
+     medians of kernel and plain version in each form.
   9. the dense fast-test with PatchMatch: insel with --dense
      -Pdense-method=patchmatch --mesh --colored --stats --artifacts; 3/3
      views, dense cloud and mesh with points and faces, K3 launched.
@@ -59,9 +66,11 @@ the CPU. Phases, each timed and each fatal on failure:
  13. the 1080p render with ORB at full image size (-Pfeature-detector=ORB
      -Pfeature-limit=0, capacity 65,536), sparse; 12/12 views, the ORB
      limits (ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG), median reprojection < 1 px,
-     K1 launched once at (12, 65536, 256), then timed alone on the run's
-     descriptors; then the SfM with five more seeds on the run's features,
-     each 12/12 within the ATE and rotation limits.
+     K1 launched once at (12, 65536, 256); then K1 alone on the run's
+     descriptors (bf16, as the SfM passes them), held to its plain version
+     under the extent contract and timed against its extent bound; then the
+     SfM with five more seeds on the run's features, each 12/12 within the
+     ATE and rotation limits.
  14. -Pmatch-precision=exact on the 1080p render; phase 4's limits, K1x
      launched once and K1 not at all; on the run's SIFT descriptors K1x
      against its plain version within 1e-5 (|q|^2 + |t|^2) and against K1
@@ -182,12 +191,18 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def match_bound(S: int, F: int, D: int, P: int, kind: str, terms: int) -> dict:
-    """Bound of a 2-NN over P pairs of S shots of F features: `terms`
-    products of 2 F^2 D flops a pair; bytes of the descriptors, validity
-    and pair table in and three (P, F) outputs."""
-    nbytes = S * F * D * 4 + S * F + P * 8 + 3 * P * F * 4
-    return bound(nbytes, terms * 2.0 * F * F * D * P, kind)
+def match_bound(ext, pairs: np.ndarray, F: int, D: int, kind: str, terms: int = 1,
+                op_bytes: int = 4) -> dict:
+    """Bound of a 2-NN over the pair table `pairs` of shots with valid
+    extents `ext` (S,) and capacity F: `terms` products of
+    2 ext_q ext_t D flops a pair; bytes of the descriptors' rows up to each
+    extent (op_bytes each value), the validity and pair table in, and three
+    (P, F) outputs. A kernel that sweeps the whole capacity passes ext = F."""
+    ext = np.asarray(ext, np.float64)
+    P = len(pairs)
+    nbytes = ext.sum() * D * op_bytes + len(ext) * F + P * 8 + 3 * P * F * 4
+    flops = terms * 2.0 * D * float((ext[pairs[:, 0]] * ext[pairs[:, 1]]).sum())
+    return bound(nbytes, flops, kind)
 
 
 def int_descriptors_with_ties(S: int, F: int, D: int, seed: int = 0):
@@ -202,55 +217,117 @@ def int_descriptors_with_ties(S: int, F: int, D: int, seed: int = 0):
     return desc, rng.random((S, F)) > 0.05
 
 
+def pm1_descriptors_with_ties(S: int, F: int, D: int, seed: int = 0) -> np.ndarray:
+    """+-1 descriptors (ORB's expansion): one random table with ~6% of its
+    signs flipped in each shot, so the ratio test keeps matches, and
+    duplicated rows, so distances tie exactly."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2, size=(F, D), dtype=np.int8) * 2 - 1
+    desc = np.empty((S, F, D), np.float32)
+    for s in range(S):
+        desc[s] = base * np.where(rng.random((F, D)) < 0.06, -1, 1)
+        desc[s, rng.integers(0, F, size=F // 16)] = desc[s, rng.integers(0, F, size=F // 16)]
+    return desc
+
+
+def orb_like_valid(S: int, F: int, seed: int = 0) -> np.ndarray:
+    """ORB's slot layout at -Pfeature-limit=0: the detections first (top-k
+    by response), 8.7-11.9% of the capacity (5.7-7.8 k of 65,536 on the
+    1080p render)."""
+    ext = np.random.default_rng(seed).integers(int(0.087 * F), int(0.119 * F) + 1, size=S)
+    return np.arange(F)[None] < ext[:, None]
+
+
+def k1_extent_contract(out_k, out_p, v_t, p_t, name: str) -> None:
+    """K1's contract against its plain version: idx, best^2 and second^2
+    bit-equal at every valid query, best^2 = BIG at every invalid one, and
+    the ratio-test masks equal everywhere."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import BIG, ratio_test_mask
+
+    vq = v_t[p_t[:, 0].long()]
+    for what, a, b in zip(("idx", "best^2", "second^2"), out_k, out_p):
+        if not torch.equal(a[vq], b[vq]):
+            raise AssertionError(f"{name}: K1 {what} differs from the plain version at "
+                                 f"{int((a != b)[vq].sum())} valid queries")
+    if not bool((out_k[1][~vq] == BIG).all()):
+        raise AssertionError(f"{name}: K1 best^2 is not BIG at every invalid query")
+    if not torch.equal(ratio_test_mask(out_k[1], out_k[2], vq),
+                       ratio_test_mask(out_p[1], out_p[2], vq)):
+        raise AssertionError(f"{name}: K1 ratio-test masks differ from the plain version")
+
+
 def phase_kernel(card: str) -> dict:
+    """K1's routes against the plain version at 12 shots, all 66 pairs
+    (see the module docstring, phase 2). Returns the fp32 full-extent
+    numbers, with every route's under "routes"."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
-    from sfm_mvs_pipeline_tpu_torch.ops.matching import ratio_test_mask, two_nn_batch
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch
 
-    S, F, D = 12, 8192, 128
-    desc, valid = int_descriptors_with_ties(S, F, D)
+    S, F = 12, 8192
     pairs = np.array([(a, b) for a in range(S) for b in range(a + 1, S)], np.int32)
-    dev = torch.device("cuda")
-    d_t = torch.from_numpy(desc).to(dev)
-    v_t = torch.from_numpy(valid).to(dev)
-    p_t = torch.from_numpy(pairs).to(dev)
-
-    def kern():
-        return K.two_nn_batch_fused(d_t, v_t, p_t)
-
-    def plain():
-        return two_nn_batch(d_t, v_t, p_t)
-
-    ik, bk, sk = kern()
-    ip, bp, sp = plain()
-    torch.cuda.synchronize()
-    vq = v_t[p_t[:, 0].long()]
-    if not torch.equal(ik, ip):
-        n = int((ik != ip).sum())
-        raise AssertionError(f"K1 idx differs from the plain version at {n} entries")
-    if not (torch.equal(bk, bp) and torch.equal(sk, sp)):
-        raise AssertionError("K1 distances are not bit-equal to the plain version")
-    if not torch.equal(ratio_test_mask(bk, sk, vq), ratio_test_mask(bp, sp, vq)):
-        raise AssertionError("K1 ratio-test masks differ from the plain version")
-    err = float(torch.maximum((bk - bp).abs().max(), (sk - sp).abs().max()))
-    n_ties = int((bp == sp).sum())
-
-    # alternate plain / kernel so neither gets a warmer card
-    ms_p1 = timed(plain)
-    ms_k1 = timed(kern)
-    ms_k2 = timed(kern)
-    ms_p2 = timed(plain)
-    ms_k = float(np.median([ms_k1, ms_k2]))
-    ms_p = float(np.median([ms_p1, ms_p2]))
     P = len(pairs)
-    gflop = 2.0 * F * F * D * P / 1e9
-    say(card, f"K1 bit-equal to plain at S={S} F={F} D={D} P={P} "
-              f"(max abs err {err}, {n_ties} tied best/second entries)")
-    say(card, f"K1 {ms_k1:.3f}/{ms_k2:.3f} ms, plain {ms_p1:.3f}/{ms_p2:.3f} ms "
-              f"(median of 5 each); K1 {P / ms_k * 1e3:.1f} pairs/s "
-              f"{gflop / ms_k:.2f} TFLOP/s, plain {P / ms_p * 1e3:.1f} pairs/s")
-    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, **match_bound(S, F, D, P, "fp32", 1)}
+    dev = torch.device("cuda")
+    p_t = torch.from_numpy(pairs).to(dev)
+    routes = {}
+
+    def run(name: str, desc: np.ndarray, valid: np.ndarray, dtype, full: bool) -> None:
+        d32 = torch.from_numpy(desc).to(dev)
+        d_t = d32.to(dtype)
+        v_t = torch.from_numpy(valid).to(dev)
+
+        def kern():
+            return K.two_nn_batch_fused(d_t, v_t, p_t)
+
+        def plain():
+            return two_nn_batch(d32, v_t, p_t)
+
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        if full:  # every block is swept: all three outputs bit-equal everywhere
+            for what, a, b in zip(("idx", "best^2", "second^2"), out_k, out_p):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K1 {name}: {what} differs from the plain version at "
+                                         f"{int((a != b).sum())} entries")
+        k1_extent_contract(out_k, out_p, v_t, p_t, f"K1 {name}")
+        vq = v_t[p_t[:, 0].long()]
+        err = float(torch.maximum((out_k[1] - out_p[1])[vq].abs().max(),
+                                  (out_k[2] - out_p[2])[vq].abs().max()))
+        n_ties = int((out_p[1] == out_p[2])[vq].sum())
+        del out_k, out_p
+        # alternate plain / kernel so neither gets a warmer card
+        ms_p1 = timed(plain, reps=3)
+        ms_k1 = timed(kern)
+        ms_k2 = timed(kern)
+        ms_p2 = timed(plain, reps=3)
+        ms_k = float(np.median([ms_k1, ms_k2]))
+        ms_p = float(np.median([ms_p1, ms_p2]))
+        ext = K.valid_extent(v_t).cpu().numpy()
+        D = desc.shape[-1]
+        kind, op_bytes = ("bf16", 2) if dtype == torch.bfloat16 else ("fp32", 4)
+        b = match_bound(ext, pairs, F, D, kind, op_bytes=op_bytes)
+        tflop = 2.0 * D * float((ext[pairs[:, 0]] * ext[pairs[:, 1]]).sum()) / 1e12
+        say(card, f"K1 {name} at S={S} F={F} D={D} P={P}, extents {int(ext.min())}-"
+                  f"{int(ext.max())}: {'bit-equal' if full else 'extent contract holds'} "
+                  f"(max abs err {err} at valid queries, {n_ties} tied best/second); K1 "
+                  f"{ms_k1:.3f}/{ms_k2:.3f} ms (median of 5), plain {ms_p1:.3f}/{ms_p2:.3f} ms "
+                  f"(median of 3); {tflop / ms_k * 1e3:.1f} {kind} TFLOP/s, "
+                  f"{b['bound_ms'] / ms_k:.2%} of its {b['bound_ms']:.3f} ms bound "
+                  f"({b['bound_by']}; {card})")
+        routes[name] = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, **b}
+
+    desc, valid = int_descriptors_with_ties(S, F, 128)
+    run("fp32", desc, valid, torch.float32, True)
+    run("fp32_prefix", desc, orb_like_valid(S, F, seed=1), torch.float32, False)
+    desc = pm1_descriptors_with_ties(S, F, 256, seed=2)
+    valid = np.random.default_rng(3).random((S, F)) > 0.05
+    valid[:, -1] = True  # full extent
+    run("bf16", desc, valid, torch.bfloat16, True)
+    run("bf16_prefix", desc, orb_like_valid(S, F, seed=4), torch.bfloat16, False)
+    return {**routes["fp32"], "routes": routes}
 
 
 # K1x against K1 (or any exact dot product): the bf16 split leaves each
@@ -261,11 +338,15 @@ def phase_kernel(card: str) -> dict:
 SPLIT_REL_TOL = 5e-5
 
 
-def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-5) -> dict:
+def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-5,
+                    invalid_ok: bool = False) -> dict:
     """Hold K1x's (idx, best^2, second^2) against another 2-NN of the same
-    float descriptors: every |best^2 - ref| <= rel_tol (|q|^2 + |t_best|^2)
-    and every |second^2 - ref| <= rel_tol (|q|^2 + max |t|^2 of the target
-    shot). Against its plain version rel_tol is 1e-5: the split's products
+    float descriptors: at every valid query |best^2 - ref| <= rel_tol
+    (|q|^2 + |t_best|^2), and at every query |second^2 - ref| <= rel_tol
+    (|q|^2 + max |t|^2 of the target shot). `invalid_ok` leaves second^2 at
+    invalid queries out, for a comparison with K1, which leaves them at BIG
+    in query blocks past a shot's valid extent (no caller reads them).
+    Against its plain version rel_tol is 1e-5: the split's products
     are exact in fp32 on both sides and only the order and rounding of the
     fp32 sums differ. Against K1 it is SPLIT_REL_TOL. idx must be equal
     wherever the reference's best and second lie farther apart than the
@@ -286,6 +367,8 @@ def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-
     tol_s = rel_tol * (qn + n[pt].amax(dim=1, keepdim=True))
     db = torch.where(vq, (bx - br).abs(), torch.zeros_like(bx))
     ds = (sx - sr).abs()
+    if invalid_ok:
+        ds = torch.where(vq, ds, torch.zeros_like(ds))
     if bool((db > tol_b).any()) or bool((ds > tol_s).any()):
         raise AssertionError(f"K1x distances off {name}'s beyond {rel_tol} (|q|^2 + |t|^2): max "
                              f"|d best| {float(db.max())}, max |d second| {float(ds.max())}")
@@ -368,7 +451,7 @@ def phase_exact_kernel(card: str) -> dict:
     ms_p2 = timed(plain, reps=3)
     ms_x = float(np.median([ms_x1, ms_x2]))
     ms_p = float(np.median([ms_p1, ms_p2]))
-    b = match_bound(S, F, D, P, "bf16", 3)
+    b = match_bound(np.full(S, F), pairs, F, D, "bf16", terms=3)
     tflop = 3 * 2.0 * F * F * D * P / 1e12
     say(card, f"K1x {ms_x1:.3f}/{ms_x2:.3f} ms (median of 5), plain {ms_p1:.3f}/{ms_p2:.3f} ms "
               f"(median of 3), K1 {ms_1:.3f} ms on the same inputs; K1x {tflop / ms_x * 1e3:.1f} "
@@ -703,10 +786,26 @@ def render_max_disp(n_views=12, h=1080, w=1920, f=1680.0) -> tuple[int, float]:
     return derive_max_disp(poses[0], poses[1:6], f, z_min, w), z_min
 
 
+def k3_bound(C: int, H: int, W: int, r: int, parity) -> dict:
+    """Bound of K3: per active (pixel, candidate), (2r+1)^2 window samples
+    of 8 FP32 operations (bilinear 3, three sums 5) and ~16 for the
+    statistics; bytes: the active candidates in, every cost out, the four
+    (H, W) f32 maps and in_n. The parity form has half the active pixels."""
+    n_act = H * W if parity is None else (H * W + (1 - parity)) // 2
+    k = (2 * r + 1) ** 2
+    return bound(C * n_act * 4.0 + C * H * W * 4.0 + 4 * H * W * 4.0 + H * W,
+                 C * n_act * (8.0 * k + 16), "fp32")
+
+
 def phase_pm_kernel(card: str) -> dict:
-    """K3 against its plain version at the 1080p render's rect shape.
-    Tolerance 0: K3 rounds every multiply, add, divide and square root as
-    the plain version's separate torch ops do, in the same order."""
+    """K3 against its plain version at the 1080p render's rect shape, in
+    the full form (every pixel: the random init) and the parity form (one
+    checkerboard parity: the 16 half-iterations of a pair), with random
+    and smooth candidates. Tolerance 0: K3 rounds every multiply, add,
+    divide and square root as the plain version's separate torch ops do, in
+    the same order. The kernel's time includes the wrapper's zeroing of the
+    neighbour's invalid pixels. Returns the full form's random-candidate
+    numbers, with both forms' under "forms"."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
@@ -730,43 +829,45 @@ def phase_pm_kernel(card: str) -> dict:
     xs = torch.arange(W, device="cuda", dtype=torch.float32)
     cands_smooth = (200.0 + 100.0 * torch.sin(xs / 300.0))[None, None] + 0.5 * rand(C, H, W)
     args = (ref, nbr, in_n, r_mean, r_var)
-    res = {}
+    res = {"full": {}, "parity": {}}
     for name, cands in (("random", cands_rand), ("smooth", cands_smooth)):
-        def kern():
-            return K3.pm_score_rect(cands, *args, maxd=maxd, window_radius=r)
+        for form, parities in (("full", (None,)), ("parity", (0, 1))):
+            for parity in parities:
+                def kern():
+                    return K3.pm_score_rect(cands, *args, maxd=maxd, window_radius=r,
+                                            parity=parity)
 
-        def plain():
-            return pm_score_rect_plain(cands, *args, maxd=maxd, window_radius=r)
+                def plain():
+                    return pm_score_rect_plain(cands, *args, maxd=maxd, window_radius=r,
+                                               parity=parity)
 
-        ok, op = kern(), plain()
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(ok).all()):
-            raise AssertionError("K3 output has non-finite values")
-        err = float((ok - op).abs().max())
-        if not torch.equal(ok, op):
-            n = int((ok != op).sum())
-            raise AssertionError(f"K3 differs from its plain version at {n} entries "
-                                 f"(max abs err {err})")
-        n_one = int((ok == 1).sum())
-        del ok, op
-        ms_p1 = timed(plain, reps=3)
-        ms_k1 = timed(kern, reps=5)
-        ms_k2 = timed(kern, reps=5)
-        ms_p2 = timed(plain, reps=3)
-        ms_k = float(np.median([ms_k1, ms_k2]))
-        ms_p = float(np.median([ms_p1, ms_p2]))
-        say(card, f"K3 bit-equal to plain at C={C} (H, W) = ({H}, {W}) r={r} maxd={maxd} "
-                  f"(derive_max_disp, z_min {z_min}), {name} candidates (max abs err {err}, "
-                  f"{n_one} costs at 1); kernel {ms_k1:.3f}/{ms_k2:.3f} ms (median of 5), "
-                  f"plain {ms_p1:.3f}/{ms_p2:.3f} ms (median of 3)")
-        res[name] = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
-    # per (pixel, candidate): (2r+1)^2 window samples of 8 FP32 operations
-    # (bilinear 3, three sums 5) and ~16 for the statistics; bytes: the
-    # candidates in and the costs out, the four (H, W) f32 maps and in_n
-    k = (2 * r + 1) ** 2
-    res["random"].update(bound(2 * C * H * W * 4.0 + 4 * H * W * 4.0 + H * W,
-                               C * H * W * (8.0 * k + 16), "fp32"))
-    return res["random"]
+                ok, op = kern(), plain()
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(ok).all()):
+                    raise AssertionError(f"K3 ({form}, {name}) output has non-finite values")
+                err = float((ok - op).abs().max())
+                if not torch.equal(ok, op):
+                    raise AssertionError(f"K3 ({form}, parity {parity}, {name}) differs from its "
+                                         f"plain version at {int((ok != op).sum())} entries "
+                                         f"(max abs err {err})")
+                n_one = int((ok == 1).sum())
+                del ok, op
+            # timed at the last parity checked
+            ms_p1 = timed(plain, reps=3)
+            ms_k1 = timed(kern, reps=5)
+            ms_k2 = timed(kern, reps=5)
+            ms_p2 = timed(plain, reps=3)
+            ms_k = float(np.median([ms_k1, ms_k2]))
+            ms_p = float(np.median([ms_p1, ms_p2]))
+            b = k3_bound(C, H, W, r, parity)
+            say(card, f"K3 {form} form bit-equal to plain at C={C} (H, W) = ({H}, {W}) r={r} "
+                      f"maxd={maxd} (derive_max_disp, z_min {z_min}), {name} candidates (max abs "
+                      f"err {err}, {n_one} costs at 1); kernel {ms_k1:.3f}/{ms_k2:.3f} ms (median "
+                      f"of 5), plain {ms_p1:.3f}/{ms_p2:.3f} ms (median of 3); "
+                      f"{b['bound_ms'] / ms_k:.2%} of its {b['bound_ms']:.4f} ms bound "
+                      f"({b['bound_by']}; {card})")
+            res[form][name] = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, **b}
+    return {**res["full"]["random"], "forms": res}
 
 
 # Limit of phase 10: the port's CPU rehearsal of this phase, on the render
@@ -925,7 +1026,7 @@ def sparse_real_size_run(card: str, argv: list[str], log_name: str, n_views: int
                          gt_R, gt_C, ate_limit: float, rot_limit: float, label: str):
     """One sparse CLI run of the render under the stage timers, checked:
     all views, ATE and rotation within the limits, median reprojection
-    < 1 px. Returns the scene."""
+    < 1 px. Returns the scene and the sfm stage's seconds."""
     from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
 
     stage_timer.enable()
@@ -951,7 +1052,7 @@ def sparse_real_size_run(card: str, argv: list[str], log_name: str, n_views: int
         raise AssertionError(f"{label} recovered {len(rec)}/{n_views} views")
     if not (rel_ate <= ate_limit and rot <= rot_limit and med < 1.0):
         raise AssertionError(f"{label}: ATE {rel_ate:.4%}, rot {rot} deg, reprojection {med} px")
-    return scene
+    return scene, split["sfm"][0]
 
 
 def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
@@ -969,6 +1070,7 @@ def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680
     from sfm_mvs_pipeline_tpu_torch.models.cameras import make_intrinsics
     from sfm_mvs_pipeline_tpu_torch.models.scene import Scene
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import BIG, two_nn_batch
     from sfm_mvs_pipeline_tpu_torch.ops.pairs import make_pairs
     from sfm_mvs_pipeline_tpu_torch.sfm.incremental import SfMConfig, reconstruct
     from sfm_mvs_pipeline_tpu_torch.utils.stats import reprojection_errors
@@ -978,24 +1080,44 @@ def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680
     argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}",
             "-Pfeature-detector=ORB", "-Pfeature-limit=0"]
     K.two_nn_batch_fused.launches = 0
-    scene = sparse_real_size_run(card, argv, "chip_smoke_orb_real_size.log", n_views, gt_R,
-                                 gt_C, ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG, "ORB real-size")
+    scene, sfm_s = sparse_real_size_run(card, argv, "chip_smoke_orb_real_size.log", n_views,
+                                        gt_R, gt_C, ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG,
+                                        "ORB real-size")
     launches = K.two_nn_batch_fused.launches
     S, F, D = scene.descriptors.shape
     if launches != 1 or (F, D) != (65536, 256):
         raise AssertionError(f"ORB real-size: K1 launches {launches} on descriptors "
                              f"{scene.descriptors.shape}")
-    d_t = torch.from_numpy(scene.descriptors).cuda()
+    # K1 alone on the run's descriptors, bf16 as the SfM passes them; the
+    # plain version runs on them cut to the largest extent (the slots past
+    # it are invalid in every shot, so no valid query's result changes)
+    d_t = torch.from_numpy(scene.descriptors).cuda().to(torch.bfloat16)
     v_t = torch.from_numpy(scene.feat_valid).cuda()
     pairs = np.array([(a, b) for a in range(n_views) for b in range(a + 1, n_views)], np.int32)
     p_t = torch.from_numpy(pairs).cuda()
-    ms = timed(lambda: K.two_nn_batch_fused(d_t, v_t, p_t), reps=2)
-    flop = 2.0 * F * F * D * len(pairs)
-    b = match_bound(S, F, D, len(pairs), "fp32", 1)
-    say(card, f"ORB real-size: K1 launches {launches} at (S, F, D) ({S}, {F}, {D}); K1 alone on "
-              f"the run's descriptors over {len(pairs)} pairs: {ms:.1f} ms (median of 2), "
-              f"{flop / ms / 1e9:.2f} TFLOP/s, {b['bound_ms'] / ms:.2%} of its "
-              f"{b['bound_ms']:.1f} ms bound ({card})")
+    ext = K.valid_extent(v_t).cpu().numpy()
+    e = int(ext.max())
+    out_k = K.two_nn_batch_fused(d_t, v_t, p_t)
+    out_p = two_nn_batch(d_t[:, :e], v_t[:, :e].contiguous(), p_t)
+    torch.cuda.synchronize()
+    k1_extent_contract(tuple(x[:, :e] for x in out_k), out_p, v_t[:, :e], p_t, "ORB real-size")
+    if not bool((out_k[1][:, e:] == BIG).all()):
+        raise AssertionError("ORB real-size: K1 best^2 is not BIG past the largest extent")
+    vq = v_t[p_t[:, 0].long(), :e]
+    err = float(torch.maximum((out_k[1][:, :e] - out_p[1])[vq].abs().max(),
+                              (out_k[2][:, :e] - out_p[2])[vq].abs().max()))
+    del out_k, out_p
+    ms = timed(lambda: K.two_nn_batch_fused(d_t, v_t, p_t), reps=5)
+    flop = 2.0 * D * float((ext[pairs[:, 0]] * ext[pairs[:, 1]]).sum())
+    b = match_bound(ext, pairs, F, D, "bf16", op_bytes=2)
+    b_pad = match_bound(np.full(S, F), pairs, F, D, "bf16", op_bytes=2)
+    say(card, f"ORB real-size: K1 launches {launches} at (S, F, D) ({S}, {F}, {D}), extents "
+              f"{ext.tolist()}; K1 alone on the run's bf16 descriptors over {len(pairs)} pairs "
+              f"holds its extent contract against the plain version (max abs err {err} at valid "
+              f"queries), {ms:.3f} ms (median of 5), "
+              f"{flop / ms / 1e9:.2f} bf16 TFLOP/s, {b['bound_ms'] / ms:.2%} of its "
+              f"{b['bound_ms']:.3f} ms extent bound ({b['bound_by']}; padded bound "
+              f"{b_pad['bound_ms']:.1f} ms); sfm stage {sfm_s:.3f} s ({card})")
     del d_t, v_t
 
     rows = []
@@ -1016,7 +1138,8 @@ def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680
     bad = [r for r in rows if r[1] != n_views or r[4] > ORB_ATE_LIMIT or r[5] > ORB_ROT_LIMIT_DEG]
     if bad:
         raise AssertionError(f"ORB real-size: seeds outside the limits: {bad}")
-    return {"launches": launches, "ms": ms}
+    return {"max_abs_err": err, "ms": ms, "launches": launches, **b,
+            "padded_bound_ms": b_pad["bound_ms"], "sfm_s": sfm_s}
 
 
 def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
@@ -1038,8 +1161,8 @@ def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=16
             "-Pmatch-precision=exact"]
     K.two_nn_batch_fused.launches = 0
     K.two_nn_exact_batch.launches = 0
-    scene = sparse_real_size_run(card, argv, "chip_smoke_exact_real_size.log", n_views, gt_R,
-                                 gt_C, 0.001, 0.25, "exact real-size")
+    scene, _ = sparse_real_size_run(card, argv, "chip_smoke_exact_real_size.log", n_views, gt_R,
+                                    gt_C, 0.001, 0.25, "exact real-size")
     launches, launches_1 = K.two_nn_exact_batch.launches, K.two_nn_batch_fused.launches
     if launches != 1 or launches_1 != 0:
         raise AssertionError(f"exact real-size: K1x launches {launches}, K1 {launches_1}")
@@ -1051,7 +1174,7 @@ def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=16
     plain = exact_agreement(out_x, two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact), d_t, v_t, p_t,
                             "its plain version")
     agree = exact_agreement(out_x, K.two_nn_batch_fused(d_t, v_t, p_t), d_t, v_t, p_t, "K1",
-                            SPLIT_REL_TOL)
+                            SPLIT_REL_TOL, invalid_ok=True)
     ix, mx = match_pairs_batch(d_t, v_t, p_t, exact=True)
     i1, m1 = match_pairs_batch(d_t, v_t, p_t, exact=False)
     differ = (mx != m1) | (mx & m1 & (ix != i1))
@@ -1164,7 +1287,7 @@ def run_phases(card: str, phases: set, work: str) -> int:
         say(card, f"phase 12: {time.perf_counter() - t0:.2f} s")
     if 13 in phases:
         t0 = time.perf_counter()
-        phase_orb_real_size(card, work)
+        entry.setdefault("routes", {})["bf16_orb_run"] = phase_orb_real_size(card, work)
         say(card, f"phase 13: {time.perf_counter() - t0:.2f} s")
     if 14 in phases:
         t0 = time.perf_counter()

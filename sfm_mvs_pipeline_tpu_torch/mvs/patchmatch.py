@@ -133,9 +133,13 @@ def pm_score_rect_plain(
     r_var: torch.Tensor,  # (H, W) ref window variance
     maxd: int,
     window_radius: int = 3,
+    parity: int | None = None,
 ) -> torch.Tensor:
     """Costs (C, H, W) of C disparity candidate maps: the semantics of the
     JAX package's pm_score_rect (ops/pallas/pm_kernel.py), in plain torch.
+    With `parity` 0 or 1 only the pixels with (y + x) % 2 == parity keep
+    their cost and the others get 1 (K3 scores only those); None, the JAX
+    package's contract, scores every pixel.
 
     Per pixel (y, x) and candidate d = di + frac (di = floor(d)): over the
     window dy, o in [-r, r] the neighbour sample is
@@ -154,6 +158,8 @@ def pm_score_rect_plain(
     checked and otherwise unused."""
     if maxd < 0:
         raise ValueError(f"maxd must be >= 0, got {maxd}")
+    if parity not in (None, 0, 1):
+        raise ValueError(f"parity must be None, 0 or 1, got {parity!r}")
     c, h, w = cands.shape
     r = window_radius
     dev, f32 = cands.device, torch.float32
@@ -198,7 +204,12 @@ def pm_score_rect_plain(
     cov = srn / area - r_mean.to(f32) * n_mean
     zncc = cov / torch.sqrt(torch.clamp(r_var.to(f32), min=1e-8) * n_var)
     cost = (1.0 - torch.clamp(zncc, -1.0, 1.0)) * 0.5
-    return torch.where(inside, cost, torch.ones((), dtype=f32, device=dev))
+    one = torch.ones((), dtype=f32, device=dev)
+    cost = torch.where(inside, cost, one)
+    if parity is None:
+        return cost
+    active = (rows[:, None] + torch.arange(w, device=dev)) % 2 == parity
+    return torch.where(active, cost, one)
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +239,9 @@ def _pm_rect_pair(
     r_mean, r_var = window_stats(ref_rect, r)
     one = torch.ones((), dtype=dt, device=dev)
 
-    def score(cands):
+    def score(cands, parity=None):
         c = pm_score_rect(cands, ref_rect, fr["nbr_rect"], fr["in_n"], r_mean, r_var,
-                          maxd=max_disp, window_radius=r)
+                          maxd=max_disp, window_radius=r, parity=parity)
         # ref-side rectified-validity gate (the sweep engine's `inside & in_r`)
         return torch.where(in_r[None], c, one)
 
@@ -249,7 +260,8 @@ def _pm_rect_pair(
             rand_local = d + scale * (2.0 * u_local - 1.0)
             rand_full = d_lo + span * u_full
             cands = torch.clamp(torch.stack(props + [rand_local, rand_full]), d_lo, d_hi)
-            ccosts = score(cands)  # (6, H, W)
+            # only this parity's pixels can change: score just those
+            ccosts = score(cands, parity)  # (6, H, W), 1 at the other parity
             ci = torch.argmin(ccosts, dim=0, keepdim=True)
             cbest = torch.gather(ccosts, 0, ci)[0]
             cd = torch.gather(cands, 0, ci)[0]

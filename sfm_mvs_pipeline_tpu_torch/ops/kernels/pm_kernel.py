@@ -4,8 +4,9 @@ Counterpart of sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py::pm_score_rect
 (TPU kernel `_pm_score_kernel`): per pixel and candidate disparity, ZNCC
 over a (2r+1)^2 window, bilinear in x, in the rectified frame of one
 (ref, neighbour) pair. mvs/patchmatch.py::_pm_rect_pair calls it once for
-the random init (C = 1) and once per half-iteration (C = 6). The CUDA source
-says what bounds the kernel on the card and how the design answers that.
+the random init (C = 1, every pixel) and once per half-iteration (C = 6,
+`parity` set: the pixels of one checkerboard parity). The CUDA source says
+what bounds the kernel on the card and how the design answers that.
 The JAX package's x-strips for images wider than 1024 are a TPU layout
 device and are not ported: the kernel takes any width.
 
@@ -40,14 +41,14 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        lib.pm_score_rect_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        lib.pm_score_rect_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         lib.pm_score_rect_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(cands, maps: dict, window_radius: int, maxd: int) -> None:
+def _check(cands, maps: dict, window_radius: int, maxd: int, parity) -> None:
     dev = cands.device
     if dev.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {dev}")
@@ -64,8 +65,10 @@ def _check(cands, maps: dict, window_radius: int, maxd: int) -> None:
         raise ValueError(f"K3 takes 1 <= window_radius <= {MAX_R}, got {window_radius}")
     if maxd < 0:
         raise ValueError(f"maxd must be >= 0, got {maxd}")
-    if hw[0] > 65535:
-        raise ValueError(f"K3 takes H <= 65535, got {hw[0]}")
+    if hw[0] > 4 * 65535:
+        raise ValueError(f"K3 takes H <= {4 * 65535}, got {hw[0]}")
+    if parity not in (None, 0, 1):
+        raise ValueError(f"parity must be None, 0 or 1, got {parity!r}")
 
 
 def pm_score_rect(
@@ -77,18 +80,26 @@ def pm_score_rect(
     r_var: torch.Tensor,  # (H, W) ref window variance
     maxd: int,
     window_radius: int = 3,
+    parity: int | None = None,
 ) -> torch.Tensor:
     """K3: costs (C, H, W) float32 of C disparity candidate maps; the
-    semantics are pm_score_rect_plain's (mvs/patchmatch.py)."""
+    semantics are pm_score_rect_plain's (mvs/patchmatch.py), `parity`
+    included: 0 or 1 scores only the pixels with (y + x) % 2 == parity and
+    gives the others cost 1. On the card the wrapper zeroes the
+    neighbour's invalid pixels (the plain version's own zeroing) and the
+    kernel reads every tap from that copy, so a tap is one load; maxd sizes
+    the kernel's staging of neighbour rows (candidates are expected in
+    [0, maxd]); the costs do not depend on it."""
     if cands.device.type == "cpu":
         from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
 
         return pm_score_rect_plain(cands, ref_rect, nbr_rect, in_n, r_mean, r_var, maxd,
-                                   window_radius)
+                                   window_radius, parity=parity)
     f32 = torch.float32
     _check(cands, {"ref_rect": (ref_rect, f32), "nbr_rect": (nbr_rect, f32),
                    "in_n": (in_n, torch.bool), "r_mean": (r_mean, f32), "r_var": (r_var, f32)},
-           window_radius, maxd)
+           window_radius, maxd, parity)
+    nbr_rect = torch.where(in_n, nbr_rect, torch.zeros((), dtype=f32, device=cands.device))
     c, h, w = cands.shape
     out = torch.empty_like(cands)
     lib = _load()
@@ -96,7 +107,8 @@ def pm_score_rect(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pm_score_rect_launch(
             cands.data_ptr(), ref_rect.data_ptr(), nbr_rect.data_ptr(), in_n.data_ptr(),
-            r_mean.data_ptr(), r_var.data_ptr(), out.data_ptr(), c, h, w, window_radius, stream)
+            r_mean.data_ptr(), r_var.data_ptr(), out.data_ptr(), c, h, w, window_radius,
+            -1 if parity is None else parity, min(maxd, 1 << 20), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     pm_score_rect.launches += 1

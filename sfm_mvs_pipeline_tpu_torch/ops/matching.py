@@ -161,7 +161,7 @@ def distinct_filter(best_idx: torch.Tensor, match_mask: torch.Tensor) -> torch.T
 
 
 def match_pairs_batch(
-    descriptors: torch.Tensor,  # (S, F, D) float32
+    descriptors: torch.Tensor,  # (S, F, D) float32, or bfloat16 +-1
     valid: torch.Tensor,  # (S, F) bool
     pairs: torch.Tensor,  # (P, 2) int32
     ratio: float = 0.7,
@@ -174,10 +174,14 @@ def match_pairs_batch(
     """Match every (q_shot, t_shot) row of `pairs` in one kernel launch.
 
     Returns (best_idx (P, F) int32, mask (P, F) bool[, best L2 distance
-    (P, F)]). The default runs K1 (fp32 FMAs). `exact=True` runs K1x, the
-    bf16x3 split on the tensor cores; callers matching binary descriptors
-    keep `exact` False, as the JAX package sends its bf16 +-1 expansion to
-    the fused kernel whatever `exact` says. `method="flann"` takes the JAX
+    (P, F)]). The default runs K1, whose route follows the descriptors'
+    type: float32 (SIFT) on fp32 FMAs, bfloat16 (ORB's +-1 expansion, as
+    sfm/incremental.py passes it) on the tensor cores, bit-equal to the
+    float32 route since every +-1 sum is an exact integer. `exact=True` runs
+    K1x, the bf16x3 split on the tensor cores, on float32 descriptors;
+    callers matching binary descriptors keep `exact` False, as the JAX
+    package sends its bf16 +-1 expansion to the fused kernel whatever
+    `exact` says. `method="flann"` takes the JAX
     package's TPU branch on every device: the exact brute-force kernel, not
     the approximate shortlist (`two_nn_approx`, not ported), since the
     shortlist still sweeps a full (F, F) low-dimensional distance matrix and

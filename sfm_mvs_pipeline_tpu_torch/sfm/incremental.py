@@ -164,8 +164,12 @@ def reconstruct(
     log(f"matching {len(pairs)} pairs")
     pairs = np.asarray(pairs, np.int32).reshape(-1, 2)
     pairs_d = torch.as_tensor(pairs, device=dev)
+    # +-1 descriptors go as bf16, which holds them exactly, to K1's
+    # tensor-core route (the JAX package's bf16 cast for its MXU)
+    desc_d = torch.as_tensor(scene.descriptors, device=dev,
+                             dtype=torch.bfloat16 if cfg.binary_descriptors else torch.float32)
     midx, mmask, mdist = M.match_pairs_batch(
-        torch.as_tensor(scene.descriptors, dtype=torch.float32, device=dev),
+        desc_d,
         torch.as_tensor(scene.feat_valid, device=dev),
         pairs_d,
         ratio=cfg.lowe_ratio,
@@ -175,6 +179,7 @@ def reconstruct(
         with_distance=True,
         exact=cfg.exact_match and not cfg.binary_descriptors,
     )
+    del desc_d
     midx_d, mmask_d = midx, mmask
     midx = midx.cpu().numpy()
     mmask = mmask.cpu().numpy()

@@ -7,7 +7,11 @@ alone with
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerances: 0. K1 on integer-valued descriptors (every product and sum is
-exact in fp32), which also pins the lowest-index tie rule. K1x likewise
+exact in fp32), which also pins the lowest-index tie rule; its bf16 route
+on +-1 descriptors likewise. Where whole 128-query blocks lie past a
+shot's valid extent, K1 is held to its extent contract: bit-equal at every
+valid query, best^2 = BIG at every invalid one, equal ratio-test masks.
+K3 in both forms (every pixel, one checkerboard parity). K1x likewise
 on integer-valued descriptors (the bf16 lo parts are 0), where it also
 equals K1; on continuous ones its distances are within
 1e-5 (|q|^2 + |t|^2) of its plain version (the products are exact in fp32,
@@ -66,6 +70,96 @@ def test_k1_rejects_bad_operands():
         K.two_nn_batch_fused(d, v, p.long())
     with pytest.raises(ValueError):
         K.two_nn_batch_fused(d.transpose(1, 2).contiguous().transpose(1, 2), v, p)
+
+
+def _pm1_with_ties(rng, S, F, D):
+    d = (rng.integers(0, 2, size=(S, F, D)) * 2 - 1).astype(np.float32)
+    for s in range(S):  # duplicated rows: exact ties
+        d[s, rng.integers(0, F, F // 8)] = d[s, rng.integers(0, F, F // 8)]
+    return d
+
+
+def _assert_extent_contract(out_k, out_p, vt, pt):
+    """K1's contract against the plain version: bit-equal at every valid
+    query, best^2 = BIG at every invalid one, ratio-test masks equal."""
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import BIG, ratio_test_mask
+
+    vq = vt[pt[:, 0].long()]
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a[vq], b[vq])
+    assert bool((out_k[1][~vq] == BIG).all())
+    assert torch.equal(ratio_test_mask(out_k[1], out_k[2], vq), ratio_test_mask(out_p[1], out_p[2], vq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,F,D", [(3, 200, 256), (2, 1000, 128), (2, 333, 64), (4, 64, 7)])
+def test_k1_bf16_route_bit_equal_to_plain(S, F, D):
+    """The tensor-core route on bf16 +-1 descriptors with ties and holes:
+    every sum is an exact integer, so idx, best^2 and second^2 equal the
+    plain version's (the float32 run) and the fp32 route's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch
+
+    rng = np.random.default_rng(S * 1000 + F + D + 2)
+    d = _pm1_with_ties(rng, S, F, D)
+    v = rng.random((S, F)) > 0.1
+    v[:, -1] = True  # the extent is the capacity: every block is swept
+    pairs = np.array([(a, b) for a in range(S) for b in range(S) if a != b], np.int32)
+    dt, vt, pt = (torch.from_numpy(x).cuda() for x in (d, v, pairs))
+    before = K.two_nn_batch_fused.launches
+    out_b = K.two_nn_batch_fused(dt.to(torch.bfloat16), vt, pt)
+    out_f = K.two_nn_batch_fused(dt, vt, pt)
+    out_p = two_nn_batch(dt, vt, pt)
+    torch.cuda.synchronize()
+    assert K.two_nn_batch_fused.launches == before + 2
+    for a, b, c in zip(out_b, out_p, out_f):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["prefix", "holes"])
+def test_k1_extent_contract(route, kind):
+    """Prefix-valid shots (ORB's top-k layout: 11%, none, 40%, all of the
+    slots) and holed ones with an invalid tail, so whole query blocks and
+    target tiles lie past the extent, under the extent contract."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch
+
+    S, F, D = 4, 1200, 256
+    rng = np.random.default_rng(5 if kind == "prefix" else 6)
+    d = _pm1_with_ties(rng, S, F, D)
+    if kind == "prefix":
+        v = np.arange(F)[None] < np.array([132, 0, 480, F])[:, None]
+    else:
+        v = rng.random((S, F)) > 0.3
+        v &= np.arange(F)[None] < np.array([700, 300, 1000, 1150])[:, None]
+    pairs = np.array([(a, b) for a in range(S) for b in range(S) if a != b], np.int32)
+    dt, vt, pt = (torch.from_numpy(x).cuda() for x in (d, v, pairs))
+    out_k = K.two_nn_batch_fused(dt.to(getattr(torch, route)), vt, pt)
+    out_p = two_nn_batch(dt, vt, pt)
+    torch.cuda.synchronize()
+    _assert_extent_contract(out_k, out_p, vt, pt)
+
+
+@pytest.mark.gpu
+def test_k1_bf16_route_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+
+    v = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    p = torch.tensor([[0, 1]], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        K.two_nn_batch_fused(torch.zeros((2, 64, 128), dtype=torch.float16, device="cuda"), v, p)
+    with pytest.raises(ValueError):
+        K.two_nn_batch_fused(torch.zeros((2, 64, 576), dtype=torch.bfloat16, device="cuda"), v, p)
+    with pytest.raises(ValueError):  # K1x keeps float32 only
+        K.two_nn_exact_batch(torch.zeros((2, 64, 128), dtype=torch.bfloat16, device="cuda"), v, p)
 
 
 @pytest.mark.gpu
@@ -237,6 +331,43 @@ def test_k3_bit_equal_to_plain(C, H, W, r, maxd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("C,H,W,r,maxd,spread", [(6, 37, 300, 3, 256, 1.0), (1, 20, 129, 2, 140, 1.0),
+                                                 (2, 16, 51, 4, 60, 1.0), (3, 11, 200, 3, 8, 20.0)])
+def test_k3_parity_bit_equal_to_plain(parity, C, H, W, r, maxd, spread):
+    """The parity form: active pixels bit-equal to the plain version's
+    parity form, the others 1; odd widths; `spread` > 1 puts candidates far
+    past maxd, so the blocks read their taps through L1 instead of shared
+    memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import window_stats
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+
+    rng = np.random.default_rng(C * 1000 + W + r + parity)
+    ref, nbr = rng.random((2, H, W), dtype=np.float32)
+    in_n = rng.random((H, W)) > 0.05
+    in_n[:, : W // 10] = False
+    cands = (rng.random((C, H, W)) * maxd * spread).astype(np.float32)
+    cands[0, :, :5] = np.floor(cands[0, :, :5])
+    ref_t = torch.from_numpy(ref).cuda()
+    r_mean, r_var = window_stats(ref_t, r)
+    dev = [torch.from_numpy(cands).cuda(), ref_t, torch.from_numpy(nbr).cuda(),
+           torch.from_numpy(in_n).cuda(), r_mean.contiguous(), r_var.contiguous()]
+    before = K3.pm_score_rect.launches
+    out = K3.pm_score_rect(*dev, maxd=maxd, window_radius=r, parity=parity)
+    full = K3.pm_score_rect(*dev, maxd=maxd, window_radius=r)
+    torch.cuda.synchronize()
+    assert K3.pm_score_rect.launches == before + 2
+    assert torch.equal(out, pm_score_rect_plain(*dev, maxd=maxd, window_radius=r, parity=parity))
+    assert torch.equal(full, pm_score_rect_plain(*dev, maxd=maxd, window_radius=r))
+    ys, xs = np.mgrid[:H, :W]
+    act = torch.from_numpy((ys + xs) % 2 == parity).cuda()
+    assert torch.equal(out[:, act], full[:, act]) and bool((out[:, ~act] == 1).all())
+
+
+@pytest.mark.gpu
 def test_k3_rejects_bad_operands():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -255,3 +386,5 @@ def test_k3_rejects_bad_operands():
         K3.pm_score_rect(c, m, m, ok, m, m, maxd=16, window_radius=5)
     with pytest.raises(ValueError):
         K3.pm_score_rect(c, m, m, ok, m.cpu(), m, maxd=16)
+    with pytest.raises(ValueError):
+        K3.pm_score_rect(c, m, m, ok, m, m, maxd=16, parity=2)
