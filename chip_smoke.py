@@ -28,16 +28,21 @@ the CPU. Phases, each timed and each fatal on failure:
      K1 launched.
   5. K2a and K2b against their plain PyTorch versions on the card at the
      1080p render's rect volume, (H, W, D) = (1080, 1920, 96) f32, random
-     costs in [0, 1], P1 = 0.03, P2 = 0.3: bit-equal outputs; CUDA-event
-     medians of kernel and plain version.
+     costs in [0, 1], P1 = 0.03, P2 = 0.3: bit-equal outputs (K2b as
+     sgm_staged_hwd runs it); K2a also at insel_k2a_shape(), the largest
+     volume phase 6 hands it. CUDA-event medians of kernel and plain version (plain,
+     kernel, kernel, plain), the bytes each design moves and the TB/s it
+     reaches, and the kernels' ptxas -v registers and shared memory.
   6. the dense fast-test: the port's CLI on sample_data/insel with
      --dense --sgm --mesh --colored --stats --artifacts; 3/3 views, dense
      cloud and mesh written with points and faces, K2a launched (insel
-     densifies at 360x202, under the staged-SGM gate).
+     densifies at 360x202, under the staged-SGM gate), the shapes of its
+     launches logged, the largest equal to the one phase 5 timed.
   7. the dense real-size run: the 1080p render of phase 4 through the CLI
      with -Pfeature-limit=0 --dense --sgm --mesh --colored --stats; 12/12
-     views, K2b launched, dense accuracy against the renderer's geometry
-     (see phase_dense_real_size), the dense wall and its per-stage split.
+     views, K2b launched (one horizontal-pair and two vertical launches a
+     pair), dense accuracy against the renderer's geometry (see
+     phase_dense_real_size), the dense wall and its per-stage split.
   8. K3 (the rectified PatchMatch scorer, built in phase 1) against its
      plain PyTorch version on the card at the 1080p render's rect shape:
      C = 6 candidate maps of (H, W) = (1080, 1920), r = 3, maxd as
@@ -537,36 +542,57 @@ def phase_real_size(card: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
     return launches
 
 
+def ptxas_report(source: str, instance: str) -> str:
+    """Registers, spills and static shared memory that `ptxas -v` gave (in
+    phase 1's build) for the kernel whose mangled name holds `instance`."""
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build
+
+    for block in build.REPORTS.get(source, "").split("Compiling entry function")[1:]:
+        if instance in block.split("\n", 1)[0]:
+            regs = re.search(r"Used (\d+) registers", block)
+            smem = re.search(r"(\d+) bytes smem", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            return (f"{regs.group(1) if regs else '?'} registers, "
+                    f"{smem.group(1) if smem else 0} B static smem, "
+                    f"{spill.group(1) if spill else '?'} B spill stores")
+    return "no ptxas report"
+
+
+def insel_k2a_shape() -> tuple[int, int, int]:
+    """(H, W, D) of the largest volume that phase 6's insel run hands K2a:
+    the rect engine scans the images at their size (under the ladder's
+    max_resolution) with MVSConfig's n_planes levels; phase 6 checks it."""
+    import cv2
+
+    from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import MVSConfig
+
+    insel = os.path.join(ROOT, "sample_data", "insel")
+    h, w = max(cv2.imread(os.path.join(insel, f)).shape[:2] for f in sorted(os.listdir(insel)))
+    return h, w, MVSConfig().n_planes
+
+
 def phase_sgm_kernels(card: str) -> tuple[dict, dict]:
     """K2a and K2b against their plain versions at the 1080p rect volume.
-    K2a is timed as sgm_aggregate calls it (both axes); K2b as
-    sgm_staged_hwd calls it (bf16 rounding, zeroed accumulator, four
+    K2a is timed as sgm_aggregate calls it (both axes), at (1080, 1920, 96)
+    and at insel_k2a_shape(); K2b as sgm_staged_hwd calls it (the
+    horizontal pair with its bf16 rounding, then the two vertical
     directions). Tolerance 0: both kernels keep the plain order of every
-    add, subtract and min."""
+    min, add and subtract, and reorder sums only as a + b == b + a and
+    0 + x == x allow. Times: plain, kernel, kernel, plain in one call; the
+    bytes each design moves and the rate it reaches; registers from ptxas
+    -v."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_bidir_plain, sgm_dir_acc_plain, staged_sum
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import (sgm_bidir_plain, sgm_dir_acc_plain,
+                                                     sgm_hpair_plain, staged_sum)
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
 
-    H, W, D, p1, p2 = 1080, 1920, 96, 0.03, 0.3
+    p1, p2 = 0.03, 0.3
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cost = torch.rand((H, W, D), generator=gen, device="cuda", dtype=torch.float32)
 
-    def k2a():
-        return [K2.sgm_bidir(cost, p1, p2, axis=a) for a in (1, 0)]
-
-    def p2a():
-        return [sgm_bidir_plain(cost, p1, p2, a) for a in (1, 0)]
-
-    def k2b():
-        return K2.sgm_staged_hwd(cost, p1, p2)
-
-    def p2b():
-        return staged_sum(cost, p1, p2, sgm_dir_acc_plain)
-
-    results = []
-    for name, kern, plain, wrap in (("K2a", k2a, p2a, lambda x: x), ("K2b", k2b, p2b, lambda x: [x])):
-        outs_k, outs_p = wrap(kern()), wrap(plain())
+    def held(name, kern, plain):
+        """Bit-equality, then plain / kernel / kernel / plain medians."""
+        outs_k, outs_p = kern(), plain()
         torch.cuda.synchronize()
         err = 0.0
         for ok, op in zip(outs_k, outs_p):
@@ -579,22 +605,53 @@ def phase_sgm_kernels(card: str) -> tuple[dict, dict]:
                                      f"(max abs err {err})")
         del outs_k, outs_p
         ms_p1 = timed(plain, reps=3)
-        ms_k1 = timed(kern, reps=3)
-        ms_k2 = timed(kern, reps=3)
+        ms_k1 = timed(kern, reps=5)
+        ms_k2 = timed(kern, reps=5)
         ms_p2 = timed(plain, reps=3)
-        ms_k = float(np.median([ms_k1, ms_k2]))
-        ms_p = float(np.median([ms_p1, ms_p2]))
-        say(card, f"{name} bit-equal to plain at (H, W, D) = ({H}, {W}, {D}), P1 {p1} P2 {p2} "
-                  f"(max abs err {err}); kernel {ms_k1:.3f}/{ms_k2:.3f} ms, plain "
-                  f"{ms_p1:.3f}/{ms_p2:.3f} ms (median of 3 each)")
-        results.append({"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p})
-    # K2a reads the f32 volume and writes one per axis; the staged route
-    # reads it once (the bf16 copy is its own traffic) and writes the sum.
-    # Both are bound by bytes: ~8 FP32 operations an element and direction.
+        return {"max_abs_err": err, "ms": float(np.median([ms_k1, ms_k2])),
+                "plain_ms": float(np.median([ms_p1, ms_p2])), "ms_runs": [ms_k1, ms_k2],
+                "plain_runs": [ms_p1, ms_p2]}
+
+    def report(name, shape, r, passes, vol):
+        gb = passes * vol / 1e9
+        say(card, f"{name} bit-equal to plain at (H, W, D) = {shape}, P1 {p1} P2 {p2} (max abs "
+                  f"err {r['max_abs_err']}); kernel {r['ms_runs'][0]:.3f}/{r['ms_runs'][1]:.3f} "
+                  f"ms (median of 5), plain {r['plain_runs'][0]:.3f}/{r['plain_runs'][1]:.3f} "
+                  f"ms (median of 3); design moves {gb:.3f} GB ({passes} volume passes), "
+                  f"{gb / r['ms']:.3f} TB/s ({card})")
+
+    H, W, D = 1080, 1920, 96
+    cost = torch.rand((H, W, D), generator=gen, device="cuda", dtype=torch.float32)
     vol = H * W * D * 4.0
-    results[0].update(bound(4 * vol, 4 * 8.0 * H * W * D, "fp32"))
-    results[1].update(bound(2 * vol, 4 * 8.0 * H * W * D, "fp32"))
-    return results[0], results[1]
+    ra = held("K2a", lambda: [K2.sgm_bidir(cost, p1, p2, axis=a) for a in (1, 0)],
+              lambda: [sgm_bidir_plain(cost, p1, p2, a) for a in (1, 0)])
+    report("K2a, both axes,", (H, W, D), ra, 10, vol)
+    rb = held("K2b", lambda: [K2.sgm_staged_hwd(cost, p1, p2)],
+              lambda: [staged_sum(cost, p1, p2, sgm_hpair_plain, sgm_dir_acc_plain)])
+    report("K2b, four directions with the bf16 rounding,", (H, W, D), rb, 10.5, vol)
+    # K2a reads the f32 volume once and writes one per axis; the staged
+    # route reads it once and writes the sum. Both are bound by bytes: ~8
+    # FP32 operations an element and direction.
+    ra.update(bound(4 * vol, 4 * 8.0 * H * W * D, "fp32"))
+    rb.update(bound(2 * vol, 4 * 8.0 * H * W * D, "fp32"))
+    del cost
+
+    H, W, D = insel_k2a_shape()
+    cost = torch.rand((H, W, D), generator=gen, device="cuda", dtype=torch.float32)
+    vol = H * W * D * 4.0
+    ri = held("K2a at insel's shape", lambda: [K2.sgm_bidir(cost, p1, p2, axis=a) for a in (1, 0)],
+              lambda: [sgm_bidir_plain(cost, p1, p2, a) for a in (1, 0)])
+    report("K2a, both axes, at insel's largest launch shape", (H, W, D), ri, 10, vol)
+    ri.update(bound(4 * vol, 4 * 8.0 * H * W * D, "fp32"), shape=[H, W, D])
+    ra["insel"] = {k: ri[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+
+    for name, instance, r in (("K2a", "sgm_pair_kernelILi3ELb0E", ra),
+                              ("K2b horizontal pair", "sgm_pair_kernelILi3ELb1E", rb),
+                              ("K2b sgm_dir_acc", "sgm_dir_acc_kernelILi3E", rb)):
+        ptx = ptxas_report(K2_SOURCE.rsplit("/", 1)[1], instance)
+        say(card, f"{name} at D = 96 (NV = 3): ptxas -v {ptx}")
+        r.setdefault("ptxas", {})[name] = ptx
+    return ra, rb
 
 
 def ply_counts(path: str) -> tuple[int, int]:
@@ -611,14 +668,30 @@ def ply_counts(path: str) -> tuple[int, int]:
 
 
 def phase_dense_fast_test(card: str) -> int:
+    """insel through the dense CLI with --sgm (K2a). Logs the (H, W, D, axis)
+    of every K2a launch and checks that the largest is insel_k2a_shape(),
+    the shape phase 5 times."""
+    from sfm_mvs_pipeline_tpu_torch.mvs import sgm as S
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    aggregate = S.sgm_aggregate
+    shapes = []
+
+    def recorded(cost_volume, p1=0.03, p2=0.3):  # its callers look it up at each call
+        d, h, w = cost_volume.shape
+        shapes.extend([(h, w, d, 1), (h, w, d, 0)])  # K2a along W, then along H
+        return aggregate(cost_volume, p1, p2)
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out-dense-fast-test")
         argv = ["-Prun=photogrammetrie", f"-Pimage={os.path.join(ROOT, 'sample_data', 'insel')}",
                 f"-Pout={out}", "--dense", "--sgm", "--mesh", "--colored", "--stats", "--artifacts"]
         K2.sgm_bidir.launches = 0
-        rc, log, wall = run_cli(argv, "chip_smoke_dense_fast_test.log")
+        S.sgm_aggregate = recorded
+        try:
+            rc, log, wall = run_cli(argv, "chip_smoke_dense_fast_test.log")
+        finally:
+            S.sgm_aggregate = aggregate
         launches = K2.sgm_bidir.launches
         if rc != 0:
             raise AssertionError(f"dense fast-test CLI exited {rc}")
@@ -627,17 +700,23 @@ def phase_dense_fast_test(card: str) -> int:
         n_pts, _ = ply_counts(os.path.join(out, "pointcloud_dense.ply"))
         n_vm, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
         depth_files = sorted(f for f in os.listdir(out) if f.startswith("depth_"))
+        counts = {sh: shapes.count(sh) for sh in sorted(set(shapes))}
         say(card, f"dense fast-test: rc 0, {n_rec}/{scene.n_shots} views, {n_pts} dense points, "
                   f"mesh {n_vm} vertices {n_faces} faces, {len(depth_files)} depth maps, "
-                  f"K2a launches {launches}, wall {wall:.2f} s")
+                  f"K2a launches {launches} at (H, W, D, axis) "
+                  + ", ".join(f"{sh} x{n}" for sh, n in counts.items()) + f", wall {wall:.2f} s")
         if n_rec != 3 or scene.n_shots != 3:
             raise AssertionError(f"dense fast-test recovered {n_rec}/3 views")
         if n_pts <= 0 or n_faces <= 0:
             raise AssertionError(f"dense fast-test: {n_pts} dense points, {n_faces} faces")
         if not os.path.exists(os.path.join(out, "mesh_dense.png")) or len(depth_files) != 3:
             raise AssertionError("dense fast-test: texture atlas or depth maps missing")
-        if launches <= 0:
-            raise AssertionError("dense fast-test never launched K2a")
+        if launches <= 0 or launches != len(shapes):
+            raise AssertionError(f"dense fast-test: K2a launches {launches}, {len(shapes)} recorded")
+        largest = max(shapes, key=lambda sh: sh[0] * sh[1] * sh[2])[:3]
+        if largest != insel_k2a_shape():
+            raise AssertionError(f"K2a's largest insel launch {largest} is not phase 5's "
+                                 f"{insel_k2a_shape()}")
     return launches
 
 
@@ -707,21 +786,22 @@ def render_once(card: str, work: str, n_views: int, h: int, w: int, f: float):
     return data, gt["R"], gt["C"]
 
 
-def run_dense_cli(card: str, argv: list[str], log_name: str, counter, n_views: int,
-                  gt_R, gt_C, out: str, limit: float, label: str) -> int:
+def run_dense_cli(card: str, argv: list[str], log_name: str, counters, n_views: int,
+                  gt_R, gt_C, out: str, limit: float, label: str) -> list[int]:
     """One dense CLI run of the render under the stage timers, checked:
-    all views, points and faces, dense accuracy at `limit`, the kernel whose
-    wrapper is `counter` launched. Returns the launch count."""
+    all views, points and faces, dense accuracy at `limit`, each kernel
+    whose wrapper is in `counters` launched. Returns their launch counts."""
     from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
 
-    counter.launches = 0
+    for counter in counters:
+        counter.launches = 0
     stage_timer.enable()
     try:
         rc, log, wall = run_cli(argv, log_name)
         split = stage_timer.report()
     finally:
         stage_timer.enable(False)
-    launches = counter.launches
+    launches = [counter.launches for counter in counters]
     if rc != 0:
         raise AssertionError(f"{label} CLI exited {rc}")
     scene, med = check_outputs(out)
@@ -732,8 +812,9 @@ def run_dense_cli(card: str, argv: list[str], log_name: str, counter, n_views: i
     rest = dense_s - sum(split.get(k, (0.0, 0))[0] for k in DENSE_PARTS)
     say(card, f"{label}: {n_rec}/{n_views} views, {n_pts} dense points, "
               f"{share:.4%} within 1% of depth of the surfaces (limit {limit:.0%}), "
-              f"mesh {n_vm} vertices {n_faces} faces, {counter.__name__} launches {launches}, "
-              f"CLI wall {wall:.2f} s")
+              f"mesh {n_vm} vertices {n_faces} faces, launches "
+              + ", ".join(f"{c.__name__} {n}" for c, n in zip(counters, launches))
+              + f", CLI wall {wall:.2f} s")
     say(card, f"{label} dense stage wall {dense_s:.3f} s (synchronising stage timers): "
               + "; ".join(f"{k} {split[k][0]:.3f} s x{split[k][1]}"
                           for k in DENSE_PARTS if k in split)
@@ -744,13 +825,15 @@ def run_dense_cli(card: str, argv: list[str], log_name: str, counter, n_views: i
         raise AssertionError(f"{label}: {n_pts} dense points, {n_faces} faces")
     if not share >= limit:
         raise AssertionError(f"{label}: {share:.4%} of points on the surfaces")
-    if launches <= 0:
-        raise AssertionError(f"{label} never launched {counter.__name__}")
+    for counter, n in zip(counters, launches):
+        if n <= 0:
+            raise AssertionError(f"{label} never launched {counter.__name__}")
     return launches
 
 
 def phase_dense_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
-    """The 1080p render through the CLI's dense path (staged SGM, K2b).
+    """The 1080p render through the CLI's dense path (staged SGM, K2b: one
+    sgm_hpair and two sgm_dir_acc launches a pair). Returns K2b's launches.
 
     Accuracy: the sim(3) from the recovered cameras to the renderer's maps
     the fused cloud into the render's frame; the share of points within 1%
@@ -763,8 +846,12 @@ def phase_dense_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=16
     out = os.path.join(work, "out-dense")
     argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0",
             "--dense", "--sgm", "--mesh", "--colored", "--stats"]
-    return run_dense_cli(card, argv, "chip_smoke_dense_real_size.log", K2.sgm_dir_acc, n_views,
-                         gt_R, gt_C, out, DENSE_SHARE_LIMIT, "dense real-size")
+    n_h, n_v = run_dense_cli(card, argv, "chip_smoke_dense_real_size.log",
+                             (K2.sgm_hpair, K2.sgm_dir_acc), n_views, gt_R, gt_C, out,
+                             DENSE_SHARE_LIMIT, "dense real-size")
+    if n_v != 2 * n_h:  # the horizontal pair and the two vertical directions of each pair
+        raise AssertionError(f"dense real-size: {n_h} horizontal and {n_v} vertical K2b launches")
+    return n_h + n_v
 
 
 def render_max_disp(n_views=12, h=1080, w=1920, f=1680.0) -> tuple[int, float]:
@@ -924,9 +1011,9 @@ def phase_pm_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.
         f"-Pimage={data}", "-Pfeature-limit=0"]
     argv = ["-Prun=photogrammetrie", *src, f"-Pout={out}", "-Pdense-method=patchmatch",
             "--dense", "--mesh", "--colored", "--stats"]
-    launches = run_dense_cli(card, argv, "chip_smoke_pm_real_size.log", K3.pm_score_rect,
-                             n_views, gt_R, gt_C, out, PM_DENSE_SHARE_LIMIT,
-                             "PatchMatch real-size")
+    (launches,) = run_dense_cli(card, argv, "chip_smoke_pm_real_size.log", (K3.pm_score_rect,),
+                                n_views, gt_R, gt_C, out, PM_DENSE_SHARE_LIMIT,
+                                "PatchMatch real-size")
     say(card, f"PatchMatch real-size: K3 launches {launches} "
               f"({launches / (5 * n_views):.2f} per pair, 5 neighbours per view)")
     return launches
@@ -1235,7 +1322,8 @@ def run_phases(card: str, phases: set, work: str) -> int:
     entry = {"name": "two_nn_batch_fused", "route": "cuda", "source": K1_SOURCE,
              "replaces": K1_REPLACES}
     k2a = {"name": "sgm_bidir", "route": "cuda", "source": K2_SOURCE, "replaces": K2A_REPLACES}
-    k2b = {"name": "sgm_dir_acc", "route": "cuda", "source": K2_SOURCE, "replaces": K2B_REPLACES}
+    k2b = {"name": "sgm_staged_hwd (sgm_hpair + sgm_dir_acc)", "route": "cuda", "source": K2_SOURCE,
+           "replaces": K2B_REPLACES}
     k3 = {"name": "pm_score_rect", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES}
     k1x = {"name": "two_nn_exact_batch", "route": "cuda", "source": K1X_SOURCE,
            "replaces": K1X_REPLACES}

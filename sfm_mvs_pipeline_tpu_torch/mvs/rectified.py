@@ -24,7 +24,9 @@ divide by 4. The JAX package takes the staged route only on its TPU backend
 size, so it computes what the JAX package computes on its accelerator.
 
 Layout: the level volume is (D, H, W) as in the JAX package; the level
-sweep runs in chunks of levels (plane_sweep.level_chunks).
+sweep runs in chunks of levels (plane_sweep.level_chunks). On the staged
+route its storage is (H, W, D), so the sweep's writes lay out the volume
+that K2b reads and no transposing copy sits between them.
 """
 
 from __future__ import annotations
@@ -173,7 +175,11 @@ def rectified_pair_depth(
         pad_img = torch.nn.functional.pad(nbr_val, (max_disp, 0))
         pad_in = torch.nn.functional.pad(in_n.to(dt), (max_disp, 0))
 
-        cv = torch.empty((n_levels, h, w), dtype=dt, device=dev)  # RECTIFIED frame
+        staged = use_sgm and h * w >= STAGED_SGM_MIN_PIXELS
+        if staged:  # (H, W, D) storage, as K2b reads it; cv is its (D, H, W) view
+            cv = torch.empty((h, w, n_levels), dtype=dt, device=dev).permute(2, 0, 1)
+        else:
+            cv = torch.empty((n_levels, h, w), dtype=dt, device=dev)  # RECTIFIED frame
         for sl in level_chunks(n_levels, h, w):
             d = disps[sl]
             di = torch.floor(d).long()
@@ -189,7 +195,7 @@ def rectified_pair_depth(
 
     dim = 0
     scale = 1.0
-    if use_sgm and h * w >= STAGED_SGM_MIN_PIXELS:
+    if staged:
         from sfm_mvs_pipeline_tpu_torch.ops.kernels.sgm_kernel import sgm_staged_hwd
 
         with stage("sgm"):

@@ -11,8 +11,10 @@ This module holds the plain PyTorch versions of the two SGM kernels
 (ops/kernels/sgm_kernel.py, csrc/sgm_kernel.cu): a Python loop over the
 scan axis of torch ops over (lines, D). They keep the kernels' operation
 order, `c + (best - m)` (sgm.py:36-40 and sgm_kernel.py:37-40 of the JAX
-package), so each kernel is bit-equal to its plain version. Volumes are
-(H, W, D), d fastest; `axis` names the scan axis (0 = H, 1 = W).
+package), so each kernel is bit-equal to its plain version; the kernels
+sum two directions in another order only where IEEE arithmetic gives the
+same bits (a + b == b + a, 0 + x == x). Volumes are (H, W, D), d fastest;
+`axis` names the scan axis (0 = H, 1 = W).
 """
 
 from __future__ import annotations
@@ -74,19 +76,36 @@ def sgm_dir_acc_plain(cost_hwd: torch.Tensor, acc: torch.Tensor, p1: float, p2: 
     return acc
 
 
-def staged_sum(cost_hwd: torch.Tensor, p1: float, p2: float, dir_acc) -> torch.Tensor:
-    """The memory-staged 4-path SGM of the JAX package's sgm_staged_hwd:
-    the cost rounded to bf16 once (round to nearest even, as
-    `.to(torch.bfloat16)` rounds), one f32 accumulator, and `dir_acc`
-    (K2b's wrapper or its plain version) called for the four directions in
-    the JAX order: horizontal forward, horizontal backward, vertical
-    forward, vertical backward (sgm_kernel.py:239-251). Returns the
-    UNNORMALISED 4-path sum (H, W, D); unlike the JAX package the D axis is
-    not padded."""
+def sgm_hpair_plain(cost_hwd: torch.Tensor, p1: float, p2: float
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2b's horizontal pair (ops/kernels/sgm_kernel.py::
+    sgm_hpair): the f32 cost rounded to bf16 (round to nearest even, as the
+    kernel's __float2bfloat16_rn), and L_forward + L_backward along W over
+    the rounded cost. Returns (acc f32, the bf16 cost)."""
     cv = cost_hwd.to(torch.bfloat16).contiguous()
-    acc = torch.zeros(cv.shape, dtype=torch.float32, device=cv.device)
-    for axis, reverse in ((1, False), (1, True), (0, False), (0, True)):
-        dir_acc(cv, acc, p1, p2, axis=axis, reverse=reverse)
+    return sgm_bidir_plain(cv.float(), p1, p2, axis=1), cv
+
+
+def staged_sum(cost_hwd: torch.Tensor, p1: float, p2: float, hpair, dir_acc) -> torch.Tensor:
+    """The memory-staged 4-path SGM of the JAX package's sgm_staged_hwd:
+    the cost rounded to bf16 once, one f32 accumulator, and the four
+    directions added in the JAX order, horizontal forward, horizontal
+    backward, vertical forward, vertical backward (sgm_kernel.py:239-251),
+    so the sum is ((0 + Lhf) + Lhb) + Lvf) + Lvb.
+
+    On the card this is K2b, which replaces the TPU kernel `_sgm_dir_kernel`
+    and is bound by bytes (ops/kernels/sgm_kernel.py, csrc/sgm_kernel.cu):
+    `hpair` (sgm_hpair, or sgm_hpair_plain) is one launch in which two warps
+    a line scan forward and backward at once through a prefetch ring and
+    meet in the middle; it rounds the f32 cost, writes the bf16 copy and
+    returns Lhf + Lhb. 0 + Lhf == Lhf and Lhf + Lhb == Lhb + Lhf, so no
+    zero-filled accumulator is read and there is no separate rounding
+    pass. `dir_acc` (sgm_dir_acc, or sgm_dir_acc_plain) then adds Lvf and
+    Lvb in place, in that order, one launch each. Returns the UNNORMALISED
+    4-path sum (H, W, D); unlike the JAX package the D axis is not padded."""
+    acc, cv = hpair(cost_hwd, p1, p2)
+    for reverse in (False, True):
+        dir_acc(cv, acc, p1, p2, axis=0, reverse=reverse)
     return acc
 
 

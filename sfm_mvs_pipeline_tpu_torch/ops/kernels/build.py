@@ -22,6 +22,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+REPORTS: dict[str, str] = {}  # source -> the ptxas -v report of its last verbose build
 
 
 def _nvcc() -> str:
@@ -46,7 +47,8 @@ def library_path(source: str) -> str:
 def build(*sources: str, verbose: bool = False) -> list[str]:
     """Compile the sources whose libraries are missing, one nvcc process
     each, all started together. Returns the library paths; `verbose` adds
-    `-Xptxas -v`, rebuilds, and prints each compiler report."""
+    `-Xptxas -v`, rebuilds, prints each compiler report and keeps it in
+    REPORTS."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = [library_path(s) for s in sources]
     jobs = []
@@ -67,6 +69,7 @@ def build(*sources: str, verbose: bool = False) -> list[str]:
             errors.append(f"nvcc failed on {source} ({proc.returncode}):\n{err}")
             continue
         if verbose:
+            REPORTS[source] = err
             print(f"{source}:\n{err.strip()}", flush=True)
         os.replace(tmp, path)  # atomic: concurrent builders never see a partial file
     if errors:

@@ -4,11 +4,22 @@ Counterparts of sfm_mvs_pipeline_tpu/ops/pallas/sgm_kernel.py:
   * `sgm_bidir` (K2a, TPU kernel `_sgm_kernel`): forward + backward SGM along
     one axis of an (H, W, D) volume, summed. Called on both axes it serves
     mvs/sgm.py::sgm_aggregate.
-  * `sgm_dir_acc` (K2b, TPU kernel `_sgm_dir_kernel`): one direction over
-    the bf16 cost, `acc += L_r` IN PLACE on an f32 accumulator.
-    `sgm_staged_hwd` calls it four times, as the JAX package does.
-The CUDA source says what bounds the kernels on the card and how the design
-answers that.
+  * K2b (TPU kernel `_sgm_dir_kernel`), the memory-staged route
+    `sgm_staged_hwd`, in two entries:
+      `sgm_hpair`: the two horizontal directions over the f32 cost rounded
+      to bf16, in one launch; returns the accumulator and the bf16 copy.
+      `sgm_dir_acc`: `acc += L_r` IN PLACE for one direction of the bf16
+      cost; the staged route calls it for the vertical forward, then the
+      vertical backward direction.
+
+What bounds them on the card is the bytes (volume passes at 3.35 TB/s), and
+only ~3 MB in flight reach that rate. The source keeps a ring of 4 rows in
+flight a warp, cost rows and the rows of acc or out a step adds to, and
+runs a line's two directions at once in two warps that meet in the middle
+(K2a, the horizontal pair): each writes its L over the first half of the
+positions it visits and adds it to the other's over the second. a + b ==
+b + a and 0 + L == L, so every result keeps the plain versions' bits
+(mvs/sgm.py). csrc/sgm_kernel.cu has the details.
 
 Build: ops/kernels/build.py compiles the source with nvcc for sm_90a at
 first use and this module loads it with ctypes.
@@ -27,7 +38,7 @@ import torch
 from sfm_mvs_pipeline_tpu_torch.ops.kernels import build as _build
 
 SOURCE = "sgm_kernel.cu"
-MAX_D = 256  # 8 disparities per lane of a warp
+MAX_D = 256  # 8 disparities a lane of a warp
 
 _lib = None
 
@@ -45,10 +56,12 @@ def _load():
                   ctypes.c_int, ctypes.c_float, ctypes.c_float]
         lib.sgm_bidir_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *common,
                                          ctypes.c_void_p]
-        lib.sgm_bidir_launch.restype = ctypes.c_int
+        lib.sgm_hpair_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                         *common, ctypes.c_void_p]
         lib.sgm_dir_acc_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *common,
                                            ctypes.c_int, ctypes.c_void_p]
-        lib.sgm_dir_acc_launch.restype = ctypes.c_int
+        for fn in (lib.sgm_bidir_launch, lib.sgm_hpair_launch, lib.sgm_dir_acc_launch):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -74,6 +87,11 @@ def _check(name: str, v: torch.Tensor, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} takes 1 <= D <= {MAX_D}, got {v.shape[2]}")
 
 
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
 def sgm_bidir(cost_hwd: torch.Tensor, p1: float, p2: float, axis: int) -> torch.Tensor:
     """K2a: forward + backward SGM along `axis` (0 = H, 1 = W) of a
     contiguous (H, W, D) float32 volume, summed; returns a new volume."""
@@ -89,13 +107,37 @@ def sgm_bidir(cost_hwd: torch.Tensor, p1: float, p2: float, axis: int) -> torch.
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sgm_bidir_launch(cost_hwd.data_ptr(), out.data_ptr(), S, L, step, line, D,
                                    float(p1), float(p2), stream)
-    if err != 0:
-        raise RuntimeError(f"K2a launch failed: cudaError {err}")
+    _raise_on(err, "K2a")
     sgm_bidir.launches += 1
     return out
 
 
 sgm_bidir.launches = 0
+
+
+def sgm_hpair(cost_hwd: torch.Tensor, p1: float, p2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2b, the staged route's horizontal pair: the contiguous (H, W, D)
+    float32 cost rounded to bf16, and L_forward + L_backward along W over
+    it. Returns (acc f32, the bf16 cost), both (H, W, D) and new."""
+    if cost_hwd.device.type == "cpu":
+        from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_hpair_plain
+
+        return sgm_hpair_plain(cost_hwd, p1, p2)
+    _check("K2b", cost_hwd, torch.float32)
+    S, L, step, line, D = _geometry(cost_hwd, 1)
+    acc = torch.empty_like(cost_hwd)
+    copy = torch.empty(cost_hwd.shape, dtype=torch.bfloat16, device=cost_hwd.device)
+    lib = _load()
+    with torch.cuda.device(cost_hwd.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sgm_hpair_launch(cost_hwd.data_ptr(), acc.data_ptr(), copy.data_ptr(), S, L,
+                                   step, line, D, float(p1), float(p2), stream)
+    _raise_on(err, "K2b (horizontal pair)")
+    sgm_hpair.launches += 1
+    return acc, copy
+
+
+sgm_hpair.launches = 0
 
 
 def sgm_dir_acc(cost_hwd: torch.Tensor, acc: torch.Tensor, p1: float, p2: float,
@@ -117,8 +159,7 @@ def sgm_dir_acc(cost_hwd: torch.Tensor, acc: torch.Tensor, p1: float, p2: float,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sgm_dir_acc_launch(cost_hwd.data_ptr(), acc.data_ptr(), S, L, step, line, D,
                                      float(p1), float(p2), int(reverse), stream)
-    if err != 0:
-        raise RuntimeError(f"K2b launch failed: cudaError {err}")
+    _raise_on(err, "K2b")
     sgm_dir_acc.launches += 1
     return acc
 
@@ -127,9 +168,9 @@ sgm_dir_acc.launches = 0
 
 
 def sgm_staged_hwd(cost_hwd: torch.Tensor, p1: float, p2: float) -> torch.Tensor:
-    """Memory-staged 4-path SGM through K2b (mvs/sgm.py::staged_sum):
-    returns the UNNORMALISED 4-path sum (H, W, D) f32; the caller divides
-    by 4."""
+    """Memory-staged 4-path SGM through K2b (mvs/sgm.py::staged_sum) of a
+    contiguous (H, W, D) f32 cost: returns the UNNORMALISED 4-path sum
+    (H, W, D) f32; the caller divides by 4."""
     from sfm_mvs_pipeline_tpu_torch.mvs.sgm import staged_sum
 
-    return staged_sum(cost_hwd, p1, p2, sgm_dir_acc)
+    return staged_sum(cost_hwd, p1, p2, sgm_hpair, sgm_dir_acc)

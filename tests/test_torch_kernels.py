@@ -17,8 +17,10 @@ equals K1; on continuous ones its distances are within
 1e-5 (|q|^2 + |t|^2) of its plain version (the products are exact in fp32,
 the order of the fp32 sums differs) and idx is equal wherever best and
 second lie farther apart than that. K2a and K2b are
-mins, adds and subtracts in the plain versions' order, so they equal the
-plain versions bit for bit, on the card and on the CPU alike. K3 rounds
+mins, adds and subtracts in the plain versions' order (their sums of two
+directions reordered only as a + b == b + a and 0 + x == x allow), so
+they equal the plain versions bit for bit, on the card and on the CPU
+alike. K3 rounds
 every multiply, add, divide and square root on its own, in the plain
 version's order, so it equals the plain version on the card bit for bit;
 the plain version on the CPU differs from both by one ulp at a few
@@ -233,21 +235,34 @@ def test_k1x_rejects_bad_operands():
         K.two_nn_exact_batch(d, v.cpu(), p)
 
 
-def _sgm_inputs(h, w, d, seed):
+def _sgm_inputs(h, w, d, seed, offset=0, device="cpu", dtype=torch.float32):
+    """Random costs (H, W, D) in [0, 1) on `device`; `offset` > 0 gives a
+    contiguous view that starts `offset` elements into its storage, so its
+    rows sit off the 16-byte grid. The values do not depend on `offset`."""
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.random((h, w, d), dtype=np.float32))
+    vals = torch.from_numpy(rng.random(h * w * d, dtype=np.float32)).to(dtype)
+    flat = torch.empty(h * w * d + offset, dtype=dtype, device=device)
+    flat[offset:] = vals.to(device)
+    return flat[offset:].view(h, w, d)
+
+
+# line counts that are not multiples of a block's two warps, S below the
+# ring depth of 4, D = 1, 37 and 256, odd H x W, rows off the 16-byte grid
+SGM_SHAPES = [(13, 21, 37, 0), (40, 33, 96, 0), (1, 50, 1, 0), (17, 9, 256, 0),
+              (64, 70, 33, 0), (3, 5, 37, 0), (7, 2, 1, 0), (1, 1, 96, 0), (5, 3, 256, 0),
+              (11, 13, 1, 0), (9, 15, 96, 1), (6, 7, 37, 3)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,D", [(13, 21, 37), (40, 33, 96), (1, 50, 1), (17, 9, 256), (64, 70, 33)])
-def test_k2a_bit_equal_to_plain(H, W, D):
+@pytest.mark.parametrize("H,W,D,offset", SGM_SHAPES)
+def test_k2a_bit_equal_to_plain(H, W, D, offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_bidir_plain
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
 
     v = _sgm_inputs(H, W, D, H * W + D)
-    vc = v.cuda()
+    vc = _sgm_inputs(H, W, D, H * W + D, offset, "cuda")
     for axis in (0, 1):
         before = K2.sgm_bidir.launches
         out = K2.sgm_bidir(vc, 0.03, 0.3, axis=axis)
@@ -258,21 +273,59 @@ def test_k2a_bit_equal_to_plain(H, W, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,D", [(13, 21, 37), (40, 33, 96), (1, 50, 1), (17, 9, 256)])
-def test_k2b_bit_equal_to_plain(H, W, D):
+@pytest.mark.parametrize("H,W,D,offset", SGM_SHAPES)
+def test_k2b_bit_equal_to_plain(H, W, D, offset):
+    """The staged route (one horizontal-pair launch, then one launch for
+    each vertical direction) against its plain version and against four
+    sequential directions of sgm_dir_acc on a zeroed accumulator, the
+    route it replaces."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_dir_acc_plain, staged_sum
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_dir_acc_plain, sgm_hpair_plain, staged_sum
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
 
     v = _sgm_inputs(H, W, D, H + W * D)
-    vc = v.cuda()
-    before = K2.sgm_dir_acc.launches
+    vc = _sgm_inputs(H, W, D, H + W * D, offset, "cuda")
+    before = (K2.sgm_hpair.launches, K2.sgm_dir_acc.launches)
     out = K2.sgm_staged_hwd(vc, 0.03, 0.3)
     torch.cuda.synchronize()
-    assert K2.sgm_dir_acc.launches == before + 4
-    assert torch.equal(out, staged_sum(vc, 0.03, 0.3, sgm_dir_acc_plain))
-    assert torch.equal(out.cpu(), staged_sum(v, 0.03, 0.3, sgm_dir_acc_plain))
+    assert (K2.sgm_hpair.launches, K2.sgm_dir_acc.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(out, staged_sum(vc, 0.03, 0.3, sgm_hpair_plain, sgm_dir_acc_plain))
+    assert torch.equal(out.cpu(), staged_sum(v, 0.03, 0.3, sgm_hpair_plain, sgm_dir_acc_plain))
+    cv = vc.to(torch.bfloat16)
+    acc = torch.zeros_like(vc)
+    for axis, reverse in ((1, False), (1, True), (0, False), (0, True)):
+        K2.sgm_dir_acc(cv, acc, 0.03, 0.3, axis=axis, reverse=reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(out, acc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,D,offset", SGM_SHAPES)
+def test_k2b_entries_bit_equal_to_plain(H, W, D, offset):
+    """Each K2b entry alone: the horizontal pair's sum and bf16 copy, and
+    one direction added in place to a non-zero accumulator."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_dir_acc_plain, sgm_hpair_plain
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    vc = _sgm_inputs(H, W, D, 7 * H + D, offset, "cuda")
+    acc_k, cv_k = K2.sgm_hpair(vc, 0.03, 0.3)
+    acc_p, cv_p = sgm_hpair_plain(vc, 0.03, 0.3)
+    torch.cuda.synchronize()
+    assert cv_k.dtype == torch.bfloat16 and torch.equal(cv_k, cv_p)
+    assert torch.equal(acc_k, acc_p)
+    # a bf16 cost whose rows sit off the grid too
+    cv_k = _sgm_inputs(H, W, D, 7 * H + D, offset, "cuda", torch.bfloat16)
+    start = _sgm_inputs(H, W, D, 11 * W + D, 0, "cuda")
+    for axis in (0, 1):
+        for reverse in (False, True):
+            a_k, a_p = start.clone(), start.clone()
+            assert K2.sgm_dir_acc(cv_k, a_k, 0.03, 0.3, axis=axis, reverse=reverse) is a_k
+            sgm_dir_acc_plain(cv_k, a_p, 0.03, 0.3, axis=axis, reverse=reverse)
+            torch.cuda.synchronize()
+            assert torch.equal(a_k, a_p), (axis, reverse)
 
 
 @pytest.mark.gpu
@@ -293,6 +346,10 @@ def test_sgm_kernels_reject_bad_operands():
     with pytest.raises(ValueError):
         K2.sgm_dir_acc(v.bfloat16(), torch.zeros((8, 9, 15), device="cuda"), 0.03, 0.3,
                        axis=1, reverse=False)
+    with pytest.raises(ValueError):
+        K2.sgm_hpair(v.bfloat16(), 0.03, 0.3)  # the pair reads the f32 cost
+    with pytest.raises(ValueError):
+        K2.sgm_hpair(v.transpose(0, 1), 0.03, 0.3)
 
 
 @pytest.mark.gpu
