@@ -59,10 +59,14 @@ the CPU. Phases, each timed and each fatal on failure:
      views, K3 launched, dense accuracy at PM_DENSE_SHARE_LIMIT, the dense
      wall and its per-stage split.
  11. K1x against its plain PyTorch version at phase 2's shape: (a) integer
-     descriptors with ties, bit-equal to the plain version and to K1; (b)
-     continuous descriptors within 1e-5 (|q|^2 + |t|^2) (see
+     descriptors with ties, ~5% of the slots invalid and scattered, and (b)
+     the same in SIFT's non-prefix slot layout (sift_like_valid), each
+     under K1's extent contract against the plain version and against K1
+     (bit-equal at every valid query); (c) continuous descriptors within
+     1e-5 (|q|^2 + |t|^2) of the plain version and SPLIT_REL_TOL of K1 (see
      phase_exact_kernel); CUDA-event medians of K1x, its plain version and
-     K1, and K1x's share of its bound.
+     K1, K1x's share of its bound over valid counts (the capacity's
+     beside it), and its ptxas registers and shared memory.
  12. insel through run-scripts/run-orb-unordered-flann.sh's flags (ORB,
      FLANN, --dense --mesh --colored --stats --artifacts), then
      -Prun=pcl-stats on its three clouds as run-pcl-stats.sh does; 3/3
@@ -80,7 +84,10 @@ the CPU. Phases, each timed and each fatal on failure:
      launched once and K1 not at all; on the run's SIFT descriptors K1x
      against its plain version within 1e-5 (|q|^2 + |t|^2) and against K1
      within the bf16 split's error bound, and the exact and fast (idx, mask)
-     tables equal wherever that tolerance decides them.
+     tables equal wherever that tolerance decides them; then K1x alone on
+     them at (12, 2048, 128), timed against its bound, each shot's valid
+     count, extent and occupied 64-slot tiles logged, the inputs saved for
+     --k1x-timing.
 
 Phases 7, 10, 13 and 14 share one render in a temporary work dir. Prints
 the card's name and power limit, one JSON line with the kernel table, and
@@ -88,6 +95,9 @@ as its last line {"ok": true, "device": {...}}. A run of some phases only
 prints no result line and exits 4.
 
 Usage: python3 chip_smoke.py [--phases 1,2,...,14]
+       python3 chip_smoke.py --k1x-timing ROOT [--k1x-inputs NPZ]
+The second form only times K1x of the checkout at ROOT (k1x_timing), so two
+checkouts compare in one call: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -244,9 +254,9 @@ def orb_like_valid(S: int, F: int, seed: int = 0) -> np.ndarray:
 
 
 def k1_extent_contract(out_k, out_p, v_t, p_t, name: str) -> None:
-    """K1's contract against its plain version: idx, best^2 and second^2
-    bit-equal at every valid query, best^2 = BIG at every invalid one, and
-    the ratio-test masks equal everywhere."""
+    """K1's contract against its plain version (K1x's too): idx, best^2 and
+    second^2 bit-equal at every valid query, best^2 = BIG at every invalid
+    one, and the ratio-test masks equal everywhere."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.ops.matching import BIG, ratio_test_mask
@@ -254,13 +264,13 @@ def k1_extent_contract(out_k, out_p, v_t, p_t, name: str) -> None:
     vq = v_t[p_t[:, 0].long()]
     for what, a, b in zip(("idx", "best^2", "second^2"), out_k, out_p):
         if not torch.equal(a[vq], b[vq]):
-            raise AssertionError(f"{name}: K1 {what} differs from the plain version at "
+            raise AssertionError(f"{name}: {what} differs from the reference at "
                                  f"{int((a != b)[vq].sum())} valid queries")
     if not bool((out_k[1][~vq] == BIG).all()):
-        raise AssertionError(f"{name}: K1 best^2 is not BIG at every invalid query")
+        raise AssertionError(f"{name}: best^2 is not BIG at every invalid query")
     if not torch.equal(ratio_test_mask(out_k[1], out_k[2], vq),
                        ratio_test_mask(out_p[1], out_p[2], vq)):
-        raise AssertionError(f"{name}: K1 ratio-test masks differ from the plain version")
+        raise AssertionError(f"{name}: ratio-test masks differ from the reference")
 
 
 def phase_kernel(card: str) -> dict:
@@ -273,7 +283,7 @@ def phase_kernel(card: str) -> dict:
     from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch
 
     S, F = 12, 8192
-    pairs = np.array([(a, b) for a in range(S) for b in range(a + 1, S)], np.int32)
+    pairs = all_pairs(S)
     P = len(pairs)
     dev = torch.device("cuda")
     p_t = torch.from_numpy(pairs).to(dev)
@@ -343,24 +353,21 @@ def phase_kernel(card: str) -> dict:
 SPLIT_REL_TOL = 5e-5
 
 
-def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-5,
-                    invalid_ok: bool = False) -> dict:
+def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-5) -> dict:
     """Hold K1x's (idx, best^2, second^2) against another 2-NN of the same
-    float descriptors: at every valid query |best^2 - ref| <= rel_tol
-    (|q|^2 + |t_best|^2), and at every query |second^2 - ref| <= rel_tol
-    (|q|^2 + max |t|^2 of the target shot). `invalid_ok` leaves second^2 at
-    invalid queries out, for a comparison with K1, which leaves them at BIG
-    in query blocks past a shot's valid extent (no caller reads them).
-    Against its plain version rel_tol is 1e-5: the split's products
-    are exact in fp32 on both sides and only the order and rounding of the
-    fp32 sums differ. Against K1 it is SPLIT_REL_TOL. idx must be equal
-    wherever the reference's best and second lie farther apart than the
-    tolerance, and ratio-test masks equal except within it of the 0.49
+    float descriptors at every valid query (K1x sweeps only valid slots and
+    leaves BIG at invalid ones): |best^2 - ref| <= rel_tol (|q|^2 +
+    |t_best|^2) and |second^2 - ref| <= rel_tol (|q|^2 + max |t|^2 of the
+    target shot). Against its plain version rel_tol is 1e-5: the split's
+    products are exact in fp32 on both sides and only the order and rounding
+    of the fp32 sums differ. Against K1 it is SPLIT_REL_TOL. idx must be
+    equal wherever the reference's best and second lie farther apart than
+    the tolerance, and ratio-test masks equal except within it of the 0.49
     boundary. Returns the largest differences, the counts, and `loose`, the
     (P, F) entries where the two match tables may differ."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch.ops.matching import ratio_test_mask
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import BIG, ratio_test_mask
 
     ix, bx, sx = out_x
     ir, br, sr = out_r
@@ -371,12 +378,12 @@ def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-
     tol_b = rel_tol * (qn + torch.gather(n[pt], 1, ir.long()))
     tol_s = rel_tol * (qn + n[pt].amax(dim=1, keepdim=True))
     db = torch.where(vq, (bx - br).abs(), torch.zeros_like(bx))
-    ds = (sx - sr).abs()
-    if invalid_ok:
-        ds = torch.where(vq, ds, torch.zeros_like(ds))
+    ds = torch.where(vq, (sx - sr).abs(), torch.zeros_like(sx))
     if bool((db > tol_b).any()) or bool((ds > tol_s).any()):
         raise AssertionError(f"K1x distances off {name}'s beyond {rel_tol} (|q|^2 + |t|^2): max "
                              f"|d best| {float(db.max())}, max |d second| {float(ds.max())}")
+    if not bool((bx[~vq] == BIG).all()):
+        raise AssertionError("K1x best^2 is not BIG at every invalid query")
     apart = vq & ((sr - br) > tol_b + tol_s)
     if not torch.equal(ix[apart], ir[apart]):
         raise AssertionError(f"K1x idx differs from {name}'s at "
@@ -392,53 +399,103 @@ def exact_agreement(out_x, out_r, d_t, v_t, p_t, name: str, rel_tol: float = 1e-
             "near": int(near.sum()), "loose": near | (vq & ~apart)}
 
 
+def sift_like_valid(S: int, F: int, seed: int = 0) -> np.ndarray:
+    """SIFT's slot layout while 2 k_sel <= F (ops/sift.py: primaries, then
+    secondary orientations from k_sel): a prefix of 55-75% of k_sel = F / 2
+    slots, then ~15% of the same offsets from k_sel. Not a valid prefix: the
+    valid extent is ~k_sel + the prefix, the valid count ~1.15 x the prefix
+    (phase 14's render: 716-858 valid of 2048, k_sel 1024)."""
+    rng = np.random.default_rng(seed)
+    k, k_sel = np.arange(F)[None], F // 2
+    n = rng.integers(int(0.55 * k_sel), int(0.75 * k_sel), size=(S, 1))
+    return (k < n) | ((k >= k_sel) & (k - k_sel < n) & (rng.random((S, F)) < 0.15))
+
+
+def k1x_phase11_inputs(S: int = 12, F: int = 8192, D: int = 128) -> dict:
+    """Phase 11's K1x inputs, name -> (descriptors, valid) in numpy: "int",
+    integer descriptors with ties and ~5% invalid slots; "sift", integer
+    descriptors with ties in sift_like_valid's layout; "cont", continuous
+    descriptors (|N(0,1)| plus per-shot noise, so distances do not cancel
+    against the norms) with "int"'s validity. Seeds 1 and 2 make "int" and
+    "cont" as every version of this phase has made them, so "cont" times
+    compare across checkouts."""
+    desc, valid = int_descriptors_with_ties(S, F, D, seed=1)
+    rng = np.random.default_rng(2)
+    base = np.abs(rng.normal(size=(F, D))).astype(np.float32)
+    cont = np.abs(np.stack([base + rng.normal(size=(F, D)).astype(np.float32) * (0.1 + 0.03 * s)
+                            for s in range(S)])).astype(np.float32)
+    return {"int": (desc, valid), "sift": (int_descriptors_with_ties(S, F, D, seed=3)[0],
+                                           sift_like_valid(S, F, seed=4)),
+            "cont": (cont, valid)}
+
+
+def k1x_bounds(valid: np.ndarray, pairs: np.ndarray, D: int) -> tuple[dict, dict]:
+    """K1x's bound over the shots' valid counts (what it sweeps) and over
+    the padded capacity: 3 bf16 products of 2 count_q count_t D flops a
+    pair, the float32 descriptor rows read once, three (P, F) outputs."""
+    S, F = valid.shape
+    return (match_bound(valid.sum(axis=1), pairs, F, D, "bf16", terms=3),
+            match_bound(np.full(S, F), pairs, F, D, "bf16", terms=3))
+
+
+def all_pairs(S: int) -> np.ndarray:
+    return np.array([(a, b) for a in range(S) for b in range(a + 1, S)], np.int32)
+
+
 def phase_exact_kernel(card: str) -> dict:
     """K1x against its plain version (and K1) at 12 x 8192 x 128 over all
-    66 pairs. (a) integer descriptors with ties: idx, best^2 and second^2
-    bit-equal to the plain version and to K1. (b) continuous descriptors
-    (|N(0,1)| plus per-shot noise, so distances do not cancel against the
-    norms): within exact_agreement's tolerance of the plain version."""
+    66 pairs, on k1x_phase11_inputs(). "int" and "sift": K1's extent
+    contract against the plain version and against K1 (bit-equal at every
+    valid query). "cont": within exact_agreement's tolerance of the plain
+    version and within SPLIT_REL_TOL of K1. Times on "cont" and "sift",
+    bounds over valid counts and capacity, ptxas report."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
     from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
 
     S, F, D = 12, 8192, 128
-    pairs = np.array([(a, b) for a in range(S) for b in range(a + 1, S)], np.int32)
+    pairs = all_pairs(S)
     P = len(pairs)
     dev = torch.device("cuda")
     p_t = torch.from_numpy(pairs).to(dev)
+    inputs = k1x_phase11_inputs(S, F, D)
+    for name, instance in (("2-NN", "two_nn_exact_kernel"), ("operand prep", "exact_prep_kernel")):
+        say(card, f"K1x, {name}: {ptxas_report(K.EXACT_SOURCE, instance)}")
+    say(card, f"K1x: {K.exact_smem(D)} B dynamic smem a block at D={D}, {K.exact_smem(256)} B "
+              f"at D=256 (288 threads)")
 
-    desc, valid = int_descriptors_with_ties(S, F, D, seed=1)
+    for name in ("int", "sift"):
+        desc, valid = inputs[name]
+        d_t, v_t = torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)
+        out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
+        out_p = two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact)
+        out_1 = K.two_nn_batch_fused(d_t, v_t, p_t)
+        torch.cuda.synchronize()
+        k1_extent_contract(out_x, out_p, v_t, p_t, f"K1x {name} vs its plain version")
+        k1_extent_contract(out_x, out_1, v_t, p_t, f"K1x {name} vs K1")
+        vq = v_t[p_t[:, 0].long()]
+        n_ties = int((out_p[1] == out_p[2])[vq].sum())
+        cnt = valid.sum(axis=1)
+        say(card, f"K1x {name}: extent contract holds against its plain version and K1 on integer "
+                  f"descriptors at S={S} F={F} D={D} P={P}, valid counts {int(cnt.min())}-"
+                  f"{int(cnt.max())}, extents {int(K.valid_extent(v_t).min())}-"
+                  f"{int(K.valid_extent(v_t).max())} ({n_ties} tied best/second at valid queries)")
+        del out_x, out_p, out_1
+
+    desc, valid = inputs["cont"]
     d_t, v_t = torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)
     out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
-    out_p = two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact)
-    out_1 = K.two_nn_batch_fused(d_t, v_t, p_t)
-    torch.cuda.synchronize()
-    for name, other in (("its plain version", out_p), ("K1", out_1)):
-        for what, a, b in zip(("idx", "best^2", "second^2"), out_x, other):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K1x {what} differs from {name} on integer descriptors at "
-                                     f"{int((a != b).sum())} entries")
-    n_ties = int((out_p[1] == out_p[2]).sum())
-    say(card, f"K1x bit-equal to its plain version and to K1 on integer descriptors at S={S} "
-              f"F={F} D={D} P={P} ({n_ties} tied best/second entries)")
-    del out_x, out_p, out_1
-
-    rng = np.random.default_rng(2)
-    base = np.abs(rng.normal(size=(F, D))).astype(np.float32)
-    desc = np.abs(np.stack([base + rng.normal(size=(F, D)).astype(np.float32) * (0.1 + 0.03 * s)
-                            for s in range(S)])).astype(np.float32)
-    d_t = torch.from_numpy(desc).to(dev)
-    out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
-    out_p = two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact)
-    torch.cuda.synchronize()
-    agree = exact_agreement(out_x, out_p, d_t, v_t, p_t, "its plain version")
+    agree = exact_agreement(out_x, two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact), d_t, v_t, p_t,
+                            "its plain version")
+    k1 = exact_agreement(out_x, K.two_nn_batch_fused(d_t, v_t, p_t), d_t, v_t, p_t, "K1",
+                         SPLIT_REL_TOL)
     err = agree["max_abs_err"]
     say(card, f"K1x on continuous descriptors: max |d| {err} ({agree['rel']:.3e} of |q|^2 + "
               f"|t|^2), idx equal at {agree['apart']} separated entries of {agree['valid']}, "
-              f"{agree['flips']} mask flips within tolerance of 0.49 ({agree['near']} near)")
-    del out_x, out_p
+              f"{agree['flips']} mask flips within tolerance of 0.49 ({agree['near']} near); vs K1 "
+              f"max |d| {k1['max_abs_err']} ({k1['rel']:.3e})")
+    del out_x
 
     def kern():
         return K.two_nn_exact_batch(d_t, v_t, p_t)
@@ -456,13 +513,25 @@ def phase_exact_kernel(card: str) -> dict:
     ms_p2 = timed(plain, reps=3)
     ms_x = float(np.median([ms_x1, ms_x2]))
     ms_p = float(np.median([ms_p1, ms_p2]))
-    b = match_bound(np.full(S, F), pairs, F, D, "bf16", terms=3)
-    tflop = 3 * 2.0 * F * F * D * P / 1e12
-    say(card, f"K1x {ms_x1:.3f}/{ms_x2:.3f} ms (median of 5), plain {ms_p1:.3f}/{ms_p2:.3f} ms "
-              f"(median of 3), K1 {ms_1:.3f} ms on the same inputs; K1x {tflop / ms_x * 1e3:.1f} "
-              f"bf16 TFLOP/s, {b['bound_ms'] / ms_x:.2%} of its {b['bound_ms']:.3f} ms bound "
-              f"({b['bound_by']}; {card})")
-    return {"max_abs_err": err, "ms": ms_x, "plain_ms": ms_p, **b}
+    b, b_cap = k1x_bounds(valid, pairs, D)
+    cnt = valid.sum(axis=1).astype(np.float64)
+    tflop = 3 * 2.0 * D * float((cnt[pairs[:, 0]] * cnt[pairs[:, 1]]).sum()) / 1e12
+    say(card, f"K1x cont {ms_x1:.3f}/{ms_x2:.3f} ms (median of 5), plain {ms_p1:.3f}/{ms_p2:.3f} "
+              f"ms (median of 3), K1 {ms_1:.3f} ms on the same inputs; K1x {tflop / ms_x * 1e3:.1f} "
+              f"bf16 TFLOP/s over valid counts, {b['bound_ms'] / ms_x:.2%} of its "
+              f"{b['bound_ms']:.3f} ms bound over valid counts ({b['bound_by']}; capacity bound "
+              f"{b_cap['bound_ms']:.3f} ms; {card})")
+
+    desc, valid = inputs["sift"]
+    d_t, v_t = torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)
+    ms_s = [timed(kern), timed(kern)]
+    b_s, _ = k1x_bounds(valid, pairs, D)
+    say(card, f"K1x sift {ms_s[0]:.3f}/{ms_s[1]:.3f} ms (median of 5), "
+              f"{b_s['bound_ms'] / float(np.median(ms_s)):.2%} of its {b_s['bound_ms']:.3f} ms "
+              f"bound over valid counts ({b_s['bound_by']}; {card})")
+    return {"max_abs_err": err, "ms": ms_x, "plain_ms": ms_p, **b,
+            "capacity_bound_ms": b_cap["bound_ms"], "k1_ms": ms_1, "sift_ms": float(np.median(ms_s)),
+            "sift_bound_ms": b_s["bound_ms"]}
 
 
 def phase_fast_test(card: str) -> None:
@@ -1180,7 +1249,7 @@ def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680
     # it are invalid in every shot, so no valid query's result changes)
     d_t = torch.from_numpy(scene.descriptors).cuda().to(torch.bfloat16)
     v_t = torch.from_numpy(scene.feat_valid).cuda()
-    pairs = np.array([(a, b) for a in range(n_views) for b in range(a + 1, n_views)], np.int32)
+    pairs = all_pairs(n_views)
     p_t = torch.from_numpy(pairs).cuda()
     ext = K.valid_extent(v_t).cpu().numpy()
     e = int(ext.max())
@@ -1229,14 +1298,20 @@ def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680
             "padded_bound_ms": b_pad["bound_ms"], "sfm_s": sfm_s}
 
 
-def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
+K1X_PHASE14_INPUTS = os.path.join(LOG_DIR, "k1x_phase14_inputs.npz")
+
+
+def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
     """-Pmatch-precision=exact on the 1080p render with SIFT: phase 4's
     limits, K1x launched once over the 66 pairs and K1 not at all. Then K1x
     and K1 on the run's own descriptors: SIFT's are continuous (L2-normalised
     to 512), so the two agree within SPLIT_REL_TOL, and the
     (idx, mask) tables of match_pairs_batch(exact=True) and (exact=False)
     differ only at entries that tolerance leaves open (a near-tie of best
-    and second, or a ratio within it of the 0.49 boundary)."""
+    and second, or a ratio within it of the 0.49 boundary). Then K1x alone
+    on them, timed twice (a median of 5 each) against its bound, with each
+    shot's valid count, extent and occupied 64-slot tiles; the inputs are
+    saved to K1X_PHASE14_INPUTS for --k1x-timing."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
@@ -1255,13 +1330,13 @@ def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=16
         raise AssertionError(f"exact real-size: K1x launches {launches}, K1 {launches_1}")
     d_t = torch.from_numpy(scene.descriptors).cuda()
     v_t = torch.from_numpy(scene.feat_valid).cuda()
-    pairs = np.array([(a, b) for a in range(n_views) for b in range(a + 1, n_views)], np.int32)
+    pairs = all_pairs(n_views)
     p_t = torch.from_numpy(pairs).cuda()
     out_x = K.two_nn_exact_batch(d_t, v_t, p_t)
     plain = exact_agreement(out_x, two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact), d_t, v_t, p_t,
                             "its plain version")
     agree = exact_agreement(out_x, K.two_nn_batch_fused(d_t, v_t, p_t), d_t, v_t, p_t, "K1",
-                            SPLIT_REL_TOL, invalid_ok=True)
+                            SPLIT_REL_TOL)
     ix, mx = match_pairs_batch(d_t, v_t, p_t, exact=True)
     i1, m1 = match_pairs_batch(d_t, v_t, p_t, exact=False)
     differ = (mx != m1) | (mx & m1 & (ix != i1))
@@ -1278,19 +1353,89 @@ def phase_exact_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=16
               f"({agree['rel']:.3e} of |q|^2 + |t|^2); exact and fast (idx, mask) tables differ "
               f"at {int(differ.sum())} of {int(m1.sum())} fast matches, all within tolerance "
               f"({agree['near']} entries near 0.49, {agree['valid'] - agree['apart']} near-ties)")
-    return launches
+    del out_x, ix, mx, i1, m1
+
+    S, F, D = scene.descriptors.shape
+    valid = scene.feat_valid
+    tiles = valid[:, : F // 64 * 64].reshape(S, -1, 64).any(axis=2).sum(axis=1)
+    say(card, f"exact real-size, K1x's launch (S, F, D) = ({S}, {F}, {D}): valid counts "
+              f"{valid.sum(axis=1).tolist()}, extents {K.valid_extent(v_t).cpu().tolist()}, "
+              f"occupied 64-slot tiles {tiles.tolist()} of {F // 64}")
+    np.savez(K1X_PHASE14_INPUTS, descriptors=scene.descriptors, valid=valid)
+    ms = time_k1x(K, d_t, v_t, p_t)
+    b, b_cap = k1x_bounds(valid, pairs, D)
+    say(card, f"exact real-size: K1x alone {ms[0]:.4f}/{ms[1]:.4f} ms (median of 5, "
+              f"compaction, operand build and scatter included), "
+              f"{b['bound_ms'] / float(np.median(ms)):.2%} of its {b['bound_ms']:.4f} ms "
+              f"bound over valid counts ({b['bound_by']}; capacity bound {b_cap['bound_ms']:.4f} "
+              f"ms; {card})")
+    return {"launches": launches, "phase14_ms": float(np.median(ms)),
+            "phase14_bound_ms": b["bound_ms"], "phase14_capacity_bound_ms": b_cap["bound_ms"]}
+
+
+def time_k1x(K, d_t, v_t, p_t) -> list[float]:
+    """K1x of the module K on one input: two medians of 5 CUDA-event times
+    (ms), after one warm-up call."""
+    K.two_nn_exact_batch(d_t, v_t, p_t)
+    return [timed(lambda: K.two_nn_exact_batch(d_t, v_t, p_t)) for _ in range(2)]
+
+
+def k1x_timing(root: str, inputs: str | None) -> int:
+    """--k1x-timing ROOT: K1x of the checkout at ROOT (this one or another,
+    such as a parent commit unpacked beside it) built from its own sources
+    and timed by time_k1x on phase 11's "cont" and "sift" inputs and, with
+    --k1x-inputs, on phase 14's saved ones; on "sift" it is also held to the
+    extent contract. Only that checkout's package is imported. Prints the
+    times and no result line; exits 4."""
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
+
+    if not os.path.abspath(K.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {K.__file__}, not the checkout at {root}")
+    card = card_line()
+    print(card, flush=True)
+    K.build()
+    cases = {name: x for name, x in k1x_phase11_inputs().items() if name != "int"}
+    if inputs:
+        with np.load(inputs) as z:
+            cases["phase14"] = (z["descriptors"], z["valid"])
+    dev = torch.device("cuda")
+    out = {}
+    for name, (desc, valid) in cases.items():
+        d_t, v_t = torch.from_numpy(desc).to(dev), torch.from_numpy(valid).to(dev)
+        p_t = torch.from_numpy(all_pairs(len(desc))).to(dev)
+        out[name] = time_k1x(K, d_t, v_t, p_t)
+        if name == "sift":  # integer descriptors: what is timed is also right
+            k1_extent_contract(K.two_nn_exact_batch(d_t, v_t, p_t),
+                               two_nn_batch(d_t, v_t, p_t, nn=two_nn_exact), v_t, p_t, name)
+        say(card, f"K1x of {root} on {name} {tuple(desc.shape)}: {out[name][0]:.4f}/"
+                  f"{out[name][1]:.4f} ms (median of 5)")
+        del d_t, v_t
+    print(json.dumps({"k1x_timing": root, "ms": out}), flush=True)
+    return 4
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
-    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    ap.add_argument("--k1x-timing", metavar="ROOT",
+                    help="only time K1x of the checkout at ROOT (see k1x_timing)")
+    ap.add_argument("--k1x-inputs", metavar="NPZ", help="phase 14's saved K1x inputs, for "
+                    f"--k1x-timing (phase 14 writes {os.path.relpath(K1X_PHASE14_INPUTS, ROOT)})")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 1
+    if args.k1x_timing:
+        return k1x_timing(args.k1x_timing, args.k1x_inputs)
     sys.path.insert(0, ROOT)
     card = card_line()
     print(card, flush=True)
@@ -1379,7 +1524,7 @@ def run_phases(card: str, phases: set, work: str) -> int:
         say(card, f"phase 13: {time.perf_counter() - t0:.2f} s")
     if 14 in phases:
         t0 = time.perf_counter()
-        k1x["launches"] = phase_exact_real_size(card, work)
+        k1x.update(phase_exact_real_size(card, work))
         say(card, f"phase 14: {time.perf_counter() - t0:.2f} s")
     if phases != ALL_PHASES:
         print(f"partial run (phases {sorted(phases)}): no result line", flush=True)

@@ -1,7 +1,8 @@
 """K1 and K1x, the batched 2-NN matchers: wrappers around
 csrc/match_kernel.cu (K1: fp32 FMAs for float32 descriptors, bf16 tensor
 cores for bfloat16 ones) and csrc/match_exact_kernel.cu (K1x, the exact
-mode's bf16x3 split on the tensor cores).
+mode's bf16 hi/lo split on the tensor cores by wgmma, over each shot's
+valid slots compacted to its front).
 
 Counterparts of sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py: K1 of
 `two_nn_batch_fused` (TPU kernel `_two_nn_fused_kernel`), K1x of
@@ -31,6 +32,9 @@ F32_BK = 16  # K1's fp32 route takes widths in multiples of this
 BF16_BK = 64  # ... its bf16 route in multiples of this,
 BF16_MAX_D = 512  # up to this (the queries' rows stay in shared memory)
 BQ = 128  # queries a block of either K1 route owns
+EXACT_BK = 64  # K1x's operand chunk: a 64-wide hi slice beside its lo slice
+EXACT_BQ = 128  # queries a K1x block owns
+EXACT_MAX_D = 256  # K1x keeps a block's query operands in shared memory
 
 _libs: dict = {}
 
@@ -51,7 +55,7 @@ def _load(source: str, name: str, argtypes: list):
 
 
 def prepare_operands(descriptors: torch.Tensor, valid: torch.Tensor):
-    """Per-shot operand prep, shared by the kernels and the plain version:
+    """K1's per-shot operand prep, as its plain version computes it:
     |x|^2 per feature (S, F) in float32 and the target norms with invalid
     slots at BIG (S, F) — O(S) work amortised over the O(S^2) pair batch.
     bfloat16 descriptors are squared and summed in float32, a shot at a
@@ -167,22 +171,55 @@ def two_nn_batch_fused(
 two_nn_batch_fused.launches = 0
 
 
+def compact_slots(valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(perm (S, F) int64, count (S,) int32): each shot's valid slots first,
+    in increasing slot order, then its invalid ones; count = its valid
+    slots. One stable argsort along the slots, no host sync."""
+    perm = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+    return perm, valid.sum(dim=1, dtype=torch.int32)
+
+
+def scatter_back(
+    idx: torch.Tensor,  # (P, F) int32, compacted target index
+    best: torch.Tensor,  # (P, F) f32, rows in compacted query order
+    second: torch.Tensor,  # (P, F) f32
+    perm: torch.Tensor,  # (S, F) int64, from compact_slots
+    pairs: torch.Tensor,  # (P, 2) int32 (q_shot, t_shot)
+    valid: torch.Tensor,  # (S, F) bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Map K1x's compacted outputs back to slot order: idx through
+    perm[t_shot], each row through perm[q_shot]. Every invalid query gets
+    best^2 = second^2 = BIG and idx = 0."""
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import BIG
+
+    pq, pt = pairs[:, 0].long(), pairs[:, 1].long()
+    dest = perm[pq]
+    idx = torch.gather(perm[pt], 1, idx.long()).to(torch.int32)
+    invalid = ~valid[pq]
+    return tuple(torch.empty_like(x).scatter_(1, dest, x).masked_fill_(invalid, fill)
+                 for x, fill in ((idx, 0), (best, BIG), (second, BIG)))
+
+
 def exact_operands(descriptors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-shot operands of K1x, (S, F, 3 Dp) bf16 each with Dp the width
-    padded to a multiple of 32: A = [q2_hi | q2_lo | q2_hi] with q2 = -2 q,
-    B = [t_hi | t_hi | t_lo] (ops/matching.py::split_bf16), so one product
-    of width 3 Dp sums q2_hi.t_hi + q2_lo.t_hi + q2_hi.t_lo. O(S F D) work
-    amortised over the O(S^2) pair batch, as the JAX package builds them."""
+    """K1x's operands of descriptors (..., D) float32: (..., 2 Dp) bf16 each,
+    Dp = D padded to a multiple of EXACT_BK. A holds q2 = -2 q and B holds
+    t, each split into hi + lo (ops/matching.py::split_bf16) and laid out
+    as EXACT_BK-wide chunks [hi_0 | lo_0 | hi_1 | lo_1 | ...], so one stage
+    of the kernel brings in both parts of the same k. The kernel sums
+    q2_hi.t_hi + q2_lo.t_hi + q2_hi.t_lo from them. The plain version of
+    K1x's prep kernel, which builds the same bits from the compacted valid
+    rows on the card: O(S F D) work amortised over the O(S^2) pair batch, as
+    the JAX package builds its operands."""
     from sfm_mvs_pipeline_tpu_torch.ops.matching import split_bf16
 
     d = descriptors.shape[-1]
-    dp = -(-d // 32) * 32
-    x = torch.nn.functional.pad(descriptors, (0, dp - d))
-    q_hi, q_lo = split_bf16(x * -2.0)
-    t_hi, t_lo = split_bf16(x)
-    a = torch.cat([q_hi, q_lo, q_hi], dim=-1).to(torch.bfloat16)
-    b = torch.cat([t_hi, t_hi, t_lo], dim=-1).to(torch.bfloat16)
-    return a.contiguous(), b.contiguous()
+    x = torch.nn.functional.pad(descriptors, (0, -(-d // EXACT_BK) * EXACT_BK - d))
+
+    def chunked(hi, lo):
+        parts = (hi.unflatten(-1, (-1, EXACT_BK)), lo.unflatten(-1, (-1, EXACT_BK)))
+        return torch.stack(parts, dim=-2).flatten(-3).to(torch.bfloat16)
+
+    return chunked(*split_bf16(x * -2.0)), chunked(*split_bf16(x))
 
 
 def two_nn_exact_batch(
@@ -191,35 +228,57 @@ def two_nn_exact_batch(
     pairs: torch.Tensor,  # (P, 2) int32 (q_shot, t_shot)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1x: the exact-mode 2-NN of all pairs in one launch, the signature,
-    checks and outputs of two_nn_batch_fused. A CPU tensor takes the plain
-    version, ops/matching.py::two_nn_exact."""
+    checks and outputs of two_nn_batch_fused, for D <= EXACT_MAX_D. A CPU
+    tensor takes the plain version, ops/matching.py::two_nn_exact.
+
+    The kernel sweeps only valid slots: compact_slots moves each shot's
+    valid slots to its front, the launch builds the operands of those rows
+    (exact_operands' layout, in a prep kernel) and runs the 2-NN over them,
+    and scatter_back maps the outputs back. Against the plain version this is
+    K1's extent contract: within the stated tolerance at every valid query
+    (bit-equal on integer descriptors), best^2 = BIG at every invalid query,
+    and equal ratio-test masks."""
     if descriptors.device.type == "cpu":
         from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
 
         return two_nn_batch(descriptors, valid, pairs, nn=two_nn_exact)
-    _check("K1x", descriptors, valid, pairs, bq=64)
+    _check("K1x", descriptors, valid, pairs, bq=EXACT_BQ)
     s, f, d = descriptors.shape
+    if d > EXACT_MAX_D:
+        raise ValueError(f"K1x takes D <= {EXACT_MAX_D}, got {d}")
     p = pairs.shape[0]
-    qn, tn = prepare_operands(descriptors, valid)
-    a, b = exact_operands(descriptors)
     idx = torch.empty((p, f), dtype=torch.int32, device=descriptors.device)
     best = torch.empty((p, f), dtype=torch.float32, device=descriptors.device)
     second = torch.empty((p, f), dtype=torch.float32, device=descriptors.device)
     if p == 0:
         return idx, best, second
+    perm, count = compact_slots(valid)
+    dp = -(-d // EXACT_BK) * EXACT_BK
+    # the kernel gathers the compacted rows into these (exact_operands'
+    # layout, EXACT_BQ zero rows past the last shot) before the 2-NN
+    a = torch.empty((s * f + EXACT_BQ, 2 * dp), dtype=torch.bfloat16, device=descriptors.device)
+    b = torch.empty_like(a)
+    norm = torch.empty(s * f, dtype=torch.float32, device=descriptors.device)
     launch = _load(EXACT_SOURCE, "two_nn_exact_launch",
-                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 4)
     with torch.cuda.device(descriptors.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            a.data_ptr(), b.data_ptr(), qn.data_ptr(), tn.data_ptr(),
-            valid.data_ptr(), pairs.data_ptr(), f, a.shape[-1], p,
-            idx.data_ptr(), best.data_ptr(), second.data_ptr(), stream,
+            descriptors.data_ptr(), perm.data_ptr(), count.data_ptr(), s, f, d, dp, a.data_ptr(),
+            b.data_ptr(), norm.data_ptr(), pairs.data_ptr(), p, idx.data_ptr(), best.data_ptr(),
+            second.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"K1x launch failed: cudaError {err}")
     two_nn_exact_batch.launches += 1
-    return idx, best, second
+    return scatter_back(idx, best, second, perm, pairs, valid)
 
 
 two_nn_exact_batch.launches = 0
+
+
+def exact_smem(d: int) -> int:
+    """Dynamic shared memory a K1x block takes at width D, in bytes, as its
+    launch computes it (0 for a width it does not take); builds K1x."""
+    dp = -(-d // EXACT_BK) * EXACT_BK
+    return _load(EXACT_SOURCE, "two_nn_exact_smem", [ctypes.c_int, ctypes.c_void_p])(dp, None)

@@ -132,29 +132,127 @@ def test_exact_wrapper_on_cpu_is_the_plain_version(rng):
 
 @pytest.mark.parametrize("D", [7, 128, 256])
 def test_exact_operands_layout(rng, D):
-    """The kernel's operands, built on the host side of the wrapper:
-    A = [q2_hi | q2_lo | q2_hi], B = [t_hi | t_hi | t_lo] in bf16, width 3 Dp
-    with Dp = D padded to a multiple of 32 by zeros. One f32 product of
-    width 3 Dp is the plain version's three-term dot: bit-equal on integer
-    descriptors (exact integers), within 1e-5 (|q|^2 + |t|^2) on continuous
-    ones (another summation order, as in the module docstring)."""
-    dp = -(-D // 32) * 32
+    """The kernel's operands, built on the host side of the wrapper: A holds
+    q2 = -2 q and B holds t, each split into bf16 hi + lo and laid out as
+    EXACT_BK-wide chunks [hi_0 | lo_0 | hi_1 | lo_1 | ...], width 2 Dp with
+    Dp = D padded to a multiple of EXACT_BK by zeros. The three products the
+    kernel issues per chunk (hi.hi, lo.hi, hi.lo), summed over the chunks,
+    are the plain version's three-term dot: bit-equal on integer descriptors
+    (exact integers), within 1e-5 (|q|^2 + |t|^2) on continuous ones
+    (another summation order, as in the module docstring)."""
+    bk = TK.EXACT_BK
+    dp = -(-D // bk) * bk
     for kind in ("int", "cont"):
         d = torch.from_numpy(_descs(rng, kind, (2, 40, D)))
         a, b = TK.exact_operands(d)
-        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape == (2, 40, 3 * dp)
-        for part in range(3):
-            assert not a[..., part * dp + D:(part + 1) * dp].any()
-            assert not b[..., part * dp + D:(part + 1) * dp].any()
-        dot = a[0].float() @ b[1].float().T
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape == (2, 40, 2 * dp)
+        # (S, F, chunk, hi | lo, k) -> hi and lo of width Dp
+        a_hi, a_lo, b_hi, b_lo = (x.float().unflatten(-1, (dp // bk, 2, bk))[..., h, :].flatten(-2)
+                                  for x in (a, b) for h in (0, 1))
         q_hi, q_lo = TM.split_bf16(d[0] * -2.0)
         t_hi, t_lo = TM.split_bf16(d[1])
+        for part, ref in ((a_hi[0], q_hi), (a_lo[0], q_lo), (b_hi[1], t_hi), (b_lo[1], t_lo)):
+            assert torch.equal(part[:, :D], ref) and not part[:, D:].any()
+        dot = sum(a_hi[0, :, c:c + bk] @ b_hi[1, :, c:c + bk].T
+                  + a_lo[0, :, c:c + bk] @ b_hi[1, :, c:c + bk].T
+                  + a_hi[0, :, c:c + bk] @ b_lo[1, :, c:c + bk].T for c in range(0, dp, bk))
         ref = q_hi @ t_hi.T + q_lo @ t_hi.T + q_hi @ t_lo.T
         if kind == "int":
             assert torch.equal(dot, ref) and torch.equal(ref, -2.0 * d[0] @ d[1].T)
         else:
             scale = (d[0] ** 2).sum(1)[:, None] + (d[1] ** 2).sum(1)[None]
             assert bool(((dot - ref).abs() <= 1e-5 * scale).all())
+
+
+def _valid_layout(rng, layout, S, F):
+    """Slot validity (S, F). "sift": SIFT's layout while 2 k_sel <= F
+    (ops/sift.py::_describe_and_pool's place()): the primaries' prefix, then
+    from k_sel = F / 2 sparse secondary orientations at their primary's
+    offset. "random": ~90% valid, scattered. "empty": random with a shot
+    that has no valid slot. "sparse": ~5% valid, so every count is below
+    one 128-slot tile."""
+    k = np.arange(F)[None]
+    if layout == "sift":
+        k_sel = F // 2
+        n = rng.integers(int(0.55 * k_sel), int(0.75 * k_sel), size=(S, 1))
+        sec = (k >= k_sel) & (k - k_sel < n) & (rng.random((S, F)) < 0.15)
+        return (k < n) | sec
+    v = rng.random((S, F)) > (0.95 if layout == "sparse" else 0.1)
+    if layout == "empty":
+        v[1] = False
+    return v
+
+
+def _compacted_plain(d, v, pairs):
+    """K1x's path with the plain version standing in for the kernel:
+    compact_slots, two_nn_exact over the compacted slots (a shot's first
+    `count` valid), scatter_back."""
+    perm, count = TK.compact_slots(v)
+    dc = torch.gather(d, 1, perm[..., None].expand(-1, -1, d.shape[-1]))
+    vc = torch.arange(d.shape[1])[None] < count[:, None]
+    return TK.scatter_back(*TM.two_nn_batch(dc, vc, pairs, nn=TM.two_nn_exact), perm, pairs, v)
+
+
+@pytest.mark.parametrize("kind,layout", [("int", "sift"), ("int", "random"), ("int", "empty"),
+                                         ("int", "sparse"), ("cont", "sift")])
+def test_compacted_slots_hold_the_extent_contract(rng, kind, layout):
+    """compact_slots puts each shot's valid slots first in slot order, and
+    the compacted path holds K1's extent contract against
+    two_nn_batch(nn=two_nn_exact) over every ordered pair, (s, s) included:
+    at every valid query bit-equal on integer descriptors (ties included:
+    the stable compaction keeps the lowest-slot rule), within the module
+    docstring's tolerance on continuous ones; best^2 = second^2 = BIG and
+    idx = 0 at every invalid query; equal ratio-test masks."""
+    S, F = 3, 300
+    d = torch.from_numpy(_descs(rng, kind, (S, F, 128)))
+    v = torch.from_numpy(_valid_layout(rng, layout, S, F))
+    pairs = torch.tensor([(a, b) for a in range(S) for b in range(S)], dtype=torch.int32)
+    perm, count = TK.compact_slots(v)
+    assert count.dtype == torch.int32 and torch.equal(count.long(), v.sum(1))
+    for s in range(S):
+        n = int(count[s])
+        assert torch.equal(perm[s, :n], torch.nonzero(v[s])[:, 0])
+        assert torch.equal(perm[s, n:], torch.nonzero(~v[s])[:, 0])
+    ix, bx, sx = _compacted_plain(d, v, pairs)
+    ip, bp, sp = TM.two_nn_batch(d, v, pairs, nn=TM.two_nn_exact)
+    vq = v[pairs[:, 0].long()]
+    assert bool((bx[~vq] == TM.BIG).all() and (sx[~vq] == TM.BIG).all() and (ix[~vq] == 0).all())
+    if kind == "int":
+        for x, y in ((ix, ip), (bx, bp), (sx, sp)):
+            assert torch.equal(x[vq], y[vq])
+        if layout != "sparse":
+            assert int(((bp == sp) & vq).sum()) > 0, "no ties reached the top-2"
+    else:
+        n = (d.double() ** 2).sum(-1)
+        pq, pt = pairs[:, 0].long(), pairs[:, 1].long()
+        tol_b = 1e-5 * (n[pq] + torch.gather(n[pt], 1, ip.long()))
+        tol_s = 1e-5 * (n[pq] + n[pt].amax(dim=1, keepdim=True))
+        assert bool(((bx - bp).abs() <= tol_b)[vq].all() and ((sx - sp).abs() <= tol_s)[vq].all())
+        apart = vq & ((sp - bp) > tol_b + tol_s)
+        assert int(apart.sum()) > 0.9 * int(vq.sum())
+        assert torch.equal(ix[apart], ip[apart])
+    if kind == "int" or layout != "sift":
+        assert torch.equal(TM.ratio_test_mask(bx, sx, vq), TM.ratio_test_mask(bp, sp, vq))
+
+
+def test_compacted_slots_vs_jax_exact_kernel(rng):
+    """The compacted path on the SIFT-like layout against the JAX package's
+    exact-mode Pallas kernel in interpret mode, on integer descriptors:
+    best^2 and second^2 bit-equal at every valid query, idx equal wherever
+    best < second (the Pallas kernel breaks exact ties by lane)."""
+    S, F = 2, 256
+    d = _descs(rng, "int", (S, F, 128))
+    v = _valid_layout(rng, "sift", S, F)
+    pairs = torch.tensor([(0, 1), (1, 0)], dtype=torch.int32)
+    ix, bx, sx = (x.numpy() for x in _compacted_plain(torch.from_numpy(d), torch.from_numpy(v),
+                                                      pairs))
+    for k, (a, b) in enumerate(pairs.tolist()):
+        ji, jb, js = _jax_exact_kernel(d[a], d[b], v[a], v[b])
+        vq = v[a]
+        np.testing.assert_array_equal(bx[k][vq], jb[vq])
+        np.testing.assert_array_equal(sx[k][vq], js[vq])
+        strict = vq & (jb < js)
+        np.testing.assert_array_equal(ix[k][strict], ji[strict])
 
 
 def test_match_pairs_batch_exact_equals_fast_on_integer_descriptors(rng):

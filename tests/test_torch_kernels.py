@@ -11,9 +11,11 @@ exact in fp32), which also pins the lowest-index tie rule; its bf16 route
 on +-1 descriptors likewise. Where whole 128-query blocks lie past a
 shot's valid extent, K1 is held to its extent contract: bit-equal at every
 valid query, best^2 = BIG at every invalid one, equal ratio-test masks.
-K3 in both forms (every pixel, one checkerboard parity). K1x likewise
-on integer-valued descriptors (the bf16 lo parts are 0), where it also
-equals K1; on continuous ones its distances are within
+K3 in both forms (every pixel, one checkerboard parity). K1x sweeps
+only valid slots, so it is held to the same extent contract: on
+integer-valued descriptors (the bf16 lo parts are 0) bit-equal to the plain
+version and to K1 at every valid query; on continuous ones its distances
+at valid queries are within
 1e-5 (|q|^2 + |t|^2) of its plain version (the products are exact in fp32,
 the order of the fp32 sums differs) and idx is equal wherever best and
 second lie farther apart than that. K2a and K2b are
@@ -164,9 +166,30 @@ def test_k1_bf16_route_rejects_bad_operands():
         K.two_nn_exact_batch(torch.zeros((2, 64, 128), dtype=torch.bfloat16, device="cuda"), v, p)
 
 
+def _k1x_valid(rng, layout, S, F):
+    """K1x's slot layouts: "random" ~90% valid, scattered; "sift" SIFT's
+    primaries' prefix plus sparse secondaries from k_sel = F / 2 (not a
+    valid prefix); "empty" random with one shot that has no valid slot."""
+    k = np.arange(F)[None]
+    if layout == "sift":
+        n = rng.integers(int(0.55 * (F // 2)), int(0.75 * (F // 2)), size=(S, 1))
+        return (k < n) | ((k >= F // 2) & (k - F // 2 < n) & (rng.random((S, F)) < 0.15))
+    v = rng.random((S, F)) > 0.1
+    if layout == "empty":
+        v[1] = False
+    return v
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,F,D", [(3, 200, 128), (2, 1000, 96), (2, 333, 256), (4, 64, 7)])
-def test_k1x_bit_equal_to_plain_and_k1_on_integers(S, F, D):
+@pytest.mark.parametrize("S,F,D,layout", [(3, 200, 128, "random"), (2, 1000, 96, "random"),
+                                          (2, 333, 256, "random"), (4, 64, 7, "random"),
+                                          (3, 65, 128, "random"), (3, 1000, 128, "sift"),
+                                          (3, 300, 7, "sift"), (3, 300, 96, "empty")])
+def test_k1x_bit_equal_to_plain_and_k1_on_integers(S, F, D, layout):
+    """Integer descriptors with ties over every ordered pair, (s, s)
+    included, under K1's extent contract against the plain version and
+    against K1: bit-equal at every valid query, best^2 = BIG at every
+    invalid one (K1x sweeps only valid slots), equal ratio-test masks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
@@ -176,8 +199,8 @@ def test_k1x_bit_equal_to_plain_and_k1_on_integers(S, F, D):
     d = rng.integers(0, 256, size=(S, F, D)).astype(np.float32)
     for s in range(S):  # duplicated rows: exact ties
         d[s, rng.integers(0, F, F // 8)] = d[s, rng.integers(0, F, F // 8)]
-    v = rng.random((S, F)) > 0.1
-    pairs = np.array([(a, b) for a in range(S) for b in range(S) if a != b], np.int32)
+    v = _k1x_valid(rng, layout, S, F)
+    pairs = np.array([(a, b) for a in range(S) for b in range(S)], np.int32)
     dt, vt, pt = (torch.from_numpy(x).cuda() for x in (d, v, pairs))
     before = K.two_nn_exact_batch.launches
     out_x = K.two_nn_exact_batch(dt, vt, pt)
@@ -185,12 +208,18 @@ def test_k1x_bit_equal_to_plain_and_k1_on_integers(S, F, D):
     out_1 = K.two_nn_batch_fused(dt, vt, pt)
     torch.cuda.synchronize()
     assert K.two_nn_exact_batch.launches == before + 1
-    for a, b, c in zip(out_x, out_p, out_1):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    _assert_extent_contract(out_x, out_p, vt, pt)
+    _assert_extent_contract(out_x, out_1, vt, pt)
+    vq = vt[pt[:, 0].long()]
+    assert bool((out_x[2][~vq] == 3.0e38).all() and (out_x[0][~vq] == 0).all())
 
 
 @pytest.mark.gpu
-def test_k1x_continuous_within_tolerance():
+@pytest.mark.parametrize("layout", ["random", "sift"])
+def test_k1x_continuous_within_tolerance(layout):
+    """Continuous descriptors: at every valid query best^2 and second^2
+    within 1e-5 (|q|^2 + |t|^2) of the plain version, idx equal wherever
+    best and second lie farther apart than that."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
@@ -201,7 +230,7 @@ def test_k1x_continuous_within_tolerance():
     base = np.abs(rng.normal(size=(F, D))).astype(np.float32)
     d = np.abs(np.stack([base + rng.normal(size=(F, D)).astype(np.float32) * (0.1 + 0.05 * s)
                          for s in range(S)])).astype(np.float32)
-    v = rng.random((S, F)) > 0.05
+    v = _k1x_valid(rng, layout, S, F)
     pairs = np.array([(0, 1), (1, 2), (2, 0)], np.int32)
     dt, vt, pt = (torch.from_numpy(x).cuda() for x in (d, v, pairs))
     ix, bx, sx = K.two_nn_exact_batch(dt, vt, pt)
@@ -212,7 +241,8 @@ def test_k1x_continuous_within_tolerance():
     tol_b = 1e-5 * (n[pq] + torch.gather(n[ptt], 1, ip.long()))
     tol_s = 1e-5 * (n[pq] + n[ptt].amax(dim=1, keepdim=True))
     assert bool(((bx - bp).abs() <= tol_b)[vq].all())
-    assert bool(((sx - sp).abs() <= tol_s).all())
+    assert bool(((sx - sp).abs() <= tol_s)[vq].all())
+    assert bool((bx[~vq] == 3.0e38).all())
     apart = vq & ((sp - bp) > tol_b + tol_s)
     assert int(apart.sum()) > 0.9 * int(vq.sum())
     assert torch.equal(ix[apart], ip[apart])
@@ -233,6 +263,10 @@ def test_k1x_rejects_bad_operands():
         K.two_nn_exact_batch(d, v, p.long())
     with pytest.raises(ValueError):
         K.two_nn_exact_batch(d, v.cpu(), p)
+    with pytest.raises(ValueError):  # the resident query rows cap the width
+        K.two_nn_exact_batch(torch.zeros((2, 64, 320), device="cuda"), v, p)
+    out = K.two_nn_exact_batch(d, v, p[:0])  # P = 0: nothing launched
+    assert all(x.shape == (0, 64) for x in out)
 
 
 def _sgm_inputs(h, w, d, seed, offset=0, device="cpu", dtype=torch.float32):
