@@ -89,12 +89,30 @@ the CPU. Phases, each timed and each fatal on failure:
      count, extent and occupied 64-slot tiles logged, the inputs saved for
      --k1x-timing.
 
-Phases 7, 10, 13 and 14 share one render in a temporary work dir. Prints
+ 15. the multi-device paths on torch.distributed, both ranks on this one
+     card: (b) the 1080p render through the CLI under torchrun at world 2
+     (gloo: the ranks share the card) with phase 7's flags and --artifacts,
+     after parallel/dryrun.py at world 2 from an emptied kernel build dir
+     (both ranks build every kernel at once); phase 4's
+     and 7's limits, the pair-sharded matching, point-sharded BA and
+     view-sharded depth-map branches on both ranks, K1 and K2b launched on
+     each, only rank 0 writing, and the depth maps bit-equal to a world-1
+     run resumed from the run's scene.npz; (c) the same scene at world 2
+     with -Pdense-method=patchmatch: K3 on each rank, phase 10's limit,
+     depth maps bit-equal to world 1; (a) in a one-rank nccl group,
+     match_pairs_sharded (fast and exact), run_bundle_adjustment_sharded
+     and compute_depth_maps_sharded (rect --sgm and PatchMatch) on that
+     scene, each bit-equal to the one-rank function on the same inputs.
+     Each rank's walls, stage split and time in collectives are printed
+     beside phases 4, 7 and 10's world-1 walls; two ranks on one card are
+     not expected to be faster. Cross-card nccl (world >= 2 on separate
+     cards) is not exercised on a one-card machine.
+Phases 7, 10, 13, 14 and 15 share one render in a temporary work dir. Prints
 the card's name and power limit, one JSON line with the kernel table, and
 as its last line {"ok": true, "device": {...}}. A run of some phases only
 prints no result line and exits 4.
 
-Usage: python3 chip_smoke.py [--phases 1,2,...,14]
+Usage: python3 chip_smoke.py [--phases 1,2,...,15]
        python3 chip_smoke.py --k1x-timing ROOT [--k1x-inputs NPZ]
 The second form only times K1x of the checkout at ROOT (k1x_timing), so two
 checkouts compare in one call: parent, change, change, parent.
@@ -128,7 +146,7 @@ K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
 K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
 K1X_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_exact_kernel.cu"
 K1X_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:88"
-ALL_PHASES = set(range(1, 15))
+ALL_PHASES = set(range(1, 16))
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"fp32": 67e12, "bf16": 989e12}
@@ -608,6 +626,7 @@ def phase_real_size(card: str, n_views=12, h=1080, w=1920, f=1680.0) -> int:
             if K.two_nn_batch_fused.launches <= 0:
                 raise AssertionError(f"real-size ({run}) never launched K1")
         say(card, f"real-size wall: cold {walls[0]:.2f} s, warm {walls[1]:.2f} s")
+        WORLD1_WALLS.update({"phase 4 cold": walls[0], "phase 4 warm": walls[1]})
     return launches
 
 
@@ -871,6 +890,7 @@ def run_dense_cli(card: str, argv: list[str], log_name: str, counters, n_views: 
     finally:
         stage_timer.enable(False)
     launches = [counter.launches for counter in counters]
+    WORLD1_WALLS[label] = wall
     if rc != 0:
         raise AssertionError(f"{label} CLI exited {rc}")
     scene, med = check_outputs(out)
@@ -1419,6 +1439,375 @@ def k1x_timing(root: str, inputs: str | None) -> int:
     return 4
 
 
+# ------------------------------------------------------------- phase 15
+# the world-1 walls phase 15 prints its runs beside (phases 4, 7, 10)
+WORLD1_WALLS: dict[str, float] = {}
+
+# 15a: the sharded functions in a one-rank nccl group on the card, each held
+# bit for bit to the one-rank function on the same inputs (the render's
+# scene from 15b: its descriptors, its BA problem, its 1080p views): the
+# matcher and BA to match_pairs_batch and run_bundle_adjustment, the depth
+# maps to mvs/pipeline.py::depth_map_view called for each view in a plain
+# loop outside the group. Then the entry digest check timed on ORB's 1080p
+# descriptor shape, against hashing the bytes on the host.
+NCCL_WORLD1 = r"""
+import hashlib, json, sys, time
+import cv2
+import numpy as np
+import torch
+import torch.distributed as dist
+from sfm_mvs_pipeline_tpu_torch.models.cameras import CAMERA_MODELS
+from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import depth_range, select_neighbors
+from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import MVSConfig, _undistort_image, depth_map_view
+from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import make_depth_planes
+from sfm_mvs_pipeline_tpu_torch.mvs.rectified import derive_max_disp
+from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
+from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch
+from sfm_mvs_pipeline_tpu_torch.ops.pairs import unordered_pairs
+from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
+from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
+from sfm_mvs_pipeline_tpu_torch.parallel.mvs import compute_depth_maps_sharded, fixed_neighbor_table
+from sfm_mvs_pipeline_tpu_torch.sfm.ba import run_bundle_adjustment
+from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+from sfm_mvs_pipeline_tpu_torch.utils.images import load_rgb
+
+D.initialize_distributed()
+backend = dist.get_backend()
+dev = torch.device("cuda")
+scene = load_scene(sys.argv[1])
+S = scene.n_shots
+desc = torch.as_tensor(scene.descriptors, device=dev)
+valid = torch.as_tensor(scene.feat_valid, device=dev)
+pairs = torch.as_tensor(unordered_pairs(S), device=dev)
+imask = np.zeros((len(scene.intrinsics), 7))
+imask[:, list(CAMERA_MODELS[scene.camera_model].opt_mask)] = 1.0
+# the run's points moved off their optimum (1 mm at a ~10 m depth), so
+# the sharded LM takes real steps
+points = scene.points + np.random.default_rng(0).normal(size=scene.points.shape) * 1e-3
+ba_args = (points, scene.poses, scene.intrinsics, scene.cam_of_shot,
+           scene.obs_point, scene.obs_shot, scene.obs_uv.astype(np.float64),
+           scene.obs_w.astype(np.float64), imask)
+ba_kw = dict(pose_free=scene.recovered.astype(np.float64), device=dev)
+rec = [int(s) for s in np.nonzero(scene.recovered)[0]]
+w, h = scene.image_size
+intr = scene.intrinsics[0].copy()
+grays = np.stack([cv2.cvtColor(_undistort_image(load_rgb(scene.image_paths[s], (w, h)), intr,
+                                                dev).astype(np.uint8), cv2.COLOR_RGB2GRAY)
+                  for s in rec]).astype(np.float32) / 255.0
+intr[3:] = 0.0
+poses = scene.poses[rec].astype(np.float32)
+nbr_idx, nbr_valid = fixed_neighbor_table(select_neighbors(scene, 5), rec, 5)
+planes = np.stack([make_depth_planes(*depth_range(scene, s), 96) for s in rec]).astype(np.float32)
+md = max(derive_max_disp(poses[i], poses[nbr_idx[i][nbr_valid[i]]], float(intr[0]),
+                         float(planes[i].min()), w) for i in range(len(rec)))
+dm_kw = {"rect_sgm": dict(method="rect", use_sgm=True, max_disp=md),
+         "patchmatch": dict(method="patchmatch", max_disp=md)}
+kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
+           sgm_kernel.sgm_hpair, sgm_kernel.sgm_dir_acc, pm_kernel.pm_score_rect)
+
+
+def depth_per_view(method, use_sgm=False, max_disp=256):
+    # compute_depth_maps_sharded's defaults
+    cfg = MVSConfig(n_neighbors=nbr_idx.shape[1], n_planes=planes.shape[1], method=method,
+                    use_sgm=use_sgm)
+    grays_d, poses_d = torch.as_tensor(grays, device=dev), torch.as_tensor(poses, device=dev)
+    intr_d = torch.as_tensor(intr.astype(np.float32), device=dev)
+    depth, valid = np.zeros(grays.shape, np.float32), np.zeros(grays.shape, bool)
+    for i in range(len(rec)):
+        nbrs = [int(n) for n in nbr_idx[i][nbr_valid[i]]]
+        if nbrs:
+            d, v, _ = depth_map_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d,
+                                     float(intr[0]), float(planes[i].min()),
+                                     float(planes[i].max()), w, planes=planes[i],
+                                     max_disp=max_disp)
+            depth[i], valid[i] = d.cpu().numpy(), v.cpu().numpy()
+    return [depth, valid]
+
+
+def run(sharded):
+    match = ((lambda *a, **k: match_pairs_sharded(*a, device=dev, **k)) if sharded
+             else match_pairs_batch)
+    out = {f"match_{x}": [t.cpu().numpy() for t in match(desc, valid, pairs, with_distance=True,
+                                                         exact=x == "exact")]
+           for x in ("fast", "exact")}
+    ba = (run_bundle_adjustment_sharded if sharded else run_bundle_adjustment)(*ba_args, **ba_kw)
+    out["ba"] = [ba[k] for k in ("points", "poses", "intrinsics")] + [np.array(ba["cost"])]
+    out["ba_iterations"] = ba["iterations"]
+    for name, kw in dm_kw.items():
+        out["depth_" + name] = (list(compute_depth_maps_sharded(
+            grays, poses, intr, nbr_idx, nbr_valid, planes, device=dev, **kw)) if sharded
+            else depth_per_view(**kw))
+    return out
+
+
+def time_digest():
+    # ORB at -Pfeature-limit=0 on the 1080p render: (12, 65536, 256) bf16 +-1
+    x = (torch.randint(0, 2, (12, 65536, 256), device=dev, dtype=torch.int8) * 2 - 1).to(
+        torch.bfloat16)
+    D.digest(x)
+    ms = {}
+    for name, fn in (("device_fingerprint", lambda: D.digest(x)),
+                     ("host_bytes", lambda: hashlib.blake2b(
+                         x.reshape(-1).view(torch.uint8).cpu().numpy().tobytes(),
+                         digest_size=8).digest())):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = sorted(ts)[1]
+    return {"shape": list(x.shape), "MB": x.numel() * 2 / 1e6, "ms": ms}
+
+
+for k in kernels:
+    k.launches = 0
+stage_timer.enable()
+t0 = time.perf_counter()
+sharded = run(True)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+split = stage_timer.report()
+launches = {k.__name__: k.launches for k in kernels}
+D.shutdown_distributed()
+stage_timer.enable(False)
+ref = run(False)
+equal = {k: all(np.array_equal(a, b) for a, b in zip(sharded[k], ref[k]))
+         for k in sharded if k != "ba_iterations"}
+equal["ba_iterations"] = sharded["ba_iterations"] == ref["ba_iterations"]
+print(json.dumps({"backend": backend, "equal": equal, "launches": launches,
+                  "digest": time_digest(),
+                  "ba_iterations": ref["ba_iterations"], "max_disp": int(md),
+                  "views": len(rec), "wall_s": wall,
+                  "collectives": {k: v for k, v in split.items() if k.startswith("collective")}}),
+      flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_cli(argv: list[str], world: int, log_name: str, timeout: float) -> tuple[str, float]:
+    """The port's CLI under torchrun at `world` ranks (all on this card; the
+    ranks' backend follows the port's rule: gloo when ranks share a card),
+    with --stage-times. Returns (the ranks' merged output, wall s); raises
+    on a non-zero exit or after `timeout` s."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m", "sfm_mvs_pipeline_tpu_torch", *argv, "--stage-times"]
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or world) // world)))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    os.makedirs(LOG_DIR, exist_ok=True)
+    with open(os.path.join(LOG_DIR, log_name), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"torchrun ({log_name}) exited {res.returncode}:\n"
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    return res.stdout, wall
+
+
+def rank_report(log: str, world: int) -> list[dict]:
+    """Each rank's --stage-times lines: {"stages": {name: (s, calls)},
+    "launches": {kernel: n}}."""
+    out = []
+    for r in range(world):
+        tag = f"r{r}/{world}]"
+        st = re.search(re.escape(tag) + r" stage times: (.*)", log)
+        kl = re.search(re.escape(tag) + r" kernel launches: (.*)", log)
+        if not (st and kl):
+            raise AssertionError(f"rank {r} logged no stage times or kernel launches")
+        stages = {}
+        for part in st.group(1).split("; "):
+            name, secs, _, calls = part.rsplit(" ", 3)
+            stages[name] = (float(secs), int(calls[1:]))
+        launches = {m[0]: int(m[1]) for m in re.findall(r"(\w+) (\d+)", kl.group(1))}
+        out.append({"stages": stages, "launches": launches})
+    return out
+
+
+def say_ranks(card: str, label: str, reports: list[dict], wall: float, world1: str) -> None:
+    for r, rep in enumerate(reports):
+        st = rep["stages"]
+        say(card, f"{label} rank {r}: torchrun wall {wall:.2f} s ({world1}); stages "
+                  + "; ".join(f"{k} {t:.3f} s x{n}" for k, (t, n) in st.items()))
+        say(card, f"{label} rank {r}: kernel launches " + ", ".join(
+            f"{k} {n}" for k, n in rep["launches"].items() if n))
+
+
+def depth_maps_equal(out_a: str, out_b: str, n_views: int, label: str) -> None:
+    for i in range(n_views):
+        a = np.load(os.path.join(out_a, f"depth_{i:04d}.npy"))
+        b = np.load(os.path.join(out_b, f"depth_{i:04d}.npy"))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: depth map {i} differs at "
+                                 f"{int((a != b).sum())} pixels")
+
+
+def dryrun_world2(card: str) -> None:
+    """parallel/dryrun.py at world 2 under torchrun (gloo, both ranks on
+    this card) from an emptied kernel build dir: both ranks build K1, K1x,
+    K2 and K3 at once (build.py writes a temporary file and renames it)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+           "-m", "sfm_mvs_pipeline_tpu_torch.parallel.dryrun"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(LOG_DIR, "chip_smoke_dryrun_world2.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    ok = [f"dryrun rank {r} of 2: OK" in res.stdout for r in range(2)]
+    if res.returncode != 0 or not all(ok):
+        raise AssertionError(f"dryrun at world 2 exited {res.returncode}:\n"
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    say(card, f"dryrun at world 2 (gloo, one card), both ranks building the kernels at once "
+              f"from an emptied build dir: OK in {wall:.2f} s")
+
+
+def phase_world2(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
+    """15b: the dryrun at world 2 from an emptied kernel build dir (both
+    ranks build every kernel at once), then the 1080p render through the
+    CLI at world 2 under torchrun (gloo, both ranks on this card) with phase
+    7's flags and --artifacts.
+    Phase 4's and 7's limits; the three sharded branches on both ranks, K1
+    and K2b launched on each, only rank 0 wrote, and the depth maps
+    bit-equal to a world-1 run resumed from the run's scene.npz.
+    15c: the same at world 2 resumed from that scene.npz with PatchMatch:
+    K3 launched on each rank, phase 10's limit, depth maps bit-equal to a
+    world-1 PatchMatch run from the same scene.npz. Returns each rank's
+    launches."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
+
+    torch.cuda.empty_cache()
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    for src in (match_kernel.SOURCE, match_kernel.EXACT_SOURCE, sgm_kernel.SOURCE,
+                pm_kernel.SOURCE):
+        path = build.library_path(src)
+        if os.path.exists(path):
+            os.unlink(path)  # this process keeps its loaded copies
+    dryrun_world2(card)
+    out2 = os.path.join(work, "out-w2")
+    argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out2}", "-Pfeature-limit=0",
+            "--dense", "--sgm", "--mesh", "--colored", "--stats", "--artifacts"]
+    log, wall = torchrun_cli(argv, 2, "chip_smoke_world2.log", 900)
+    reports = rank_report(log, 2)
+    scene, med = check_outputs(out2)
+    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
+    share, n_pts = dense_accuracy(out2, gt_R, gt_C)
+    n_live = int((scene.obs_w > 0).sum())
+    ba_sharded = len(re.findall(r"r0/2\] BA #\d+: .*point-sharded over 2 ranks", log))
+    ba_runs = len(re.findall(r"r0/2\] BA #\d+", log))
+    say(card, f"world 2 (gloo, one card): {len(rec)}/{n_views} views, ATE {rel_ate:.5%} of extent, "
+              f"max rel rot {rot:.4f} deg, median reprojection {med:.4f} px, {n_pts} dense points, "
+              f"{share:.4%} within 1% of depth (limit {DENSE_SHARE_LIMIT:.0%}), {n_live} live "
+              f"observations, {ba_sharded} of {ba_runs} BA runs point-sharded")
+    world1 = ", ".join(f"{k} {v:.2f} s" for k, v in WORLD1_WALLS.items()) or "world-1 phases not run"
+    say_ranks(card, "world 2", reports, wall, "world 1: " + world1)
+    iters = sum(int(m) for m in re.findall(
+        r"r0/2\] BA #\d+: .*\((\d+) iters, .*point-sharded over 2 ranks", log))
+    for r, rep in enumerate(reports):
+        t_red, n_red = rep["stages"].get("collective all_reduce", (0.0, 0))
+        t_gat, n_gat = rep["stages"].get("collective all_gather", (0.0, 0))
+        say(card, f"world 2 rank {r}: all_reduce {t_red:.4f} s x{n_red} "
+                  f"({t_red / max(iters, 1) * 1e3:.3f} ms per sharded LM iteration, {iters} "
+                  f"iterations), all_gather {t_gat:.4f} s x{n_gat} (synchronising timers)")
+    if len(rec) != n_views or not (rel_ate <= 0.001 and rot <= 0.25 and med < 1.0):
+        raise AssertionError(f"world 2: {len(rec)} views, ATE {rel_ate}, rot {rot}, reproj {med}")
+    if not share >= DENSE_SHARE_LIMIT:
+        raise AssertionError(f"world 2: {share:.4%} of dense points on the surfaces")
+    for r in range(2):
+        for what in ("SfM r{r}/2] pair-sharded matching over 2 ranks",
+                     "MVS r{r}/2] view-sharded depth maps over 2 ranks"):
+            if what.format(r=r) not in log:
+                raise AssertionError(f"world 2: rank {r} did not log {what.format(r=r)!r}")
+        lr = reports[r]["launches"]
+        if lr["two_nn_batch_fused"] <= 0 or lr["sgm_hpair"] <= 0 or lr["sgm_dir_acc"] <= 0:
+            raise AssertionError(f"world 2: rank {r} launches {lr}")
+    if ba_sharded == 0 and n_live >= 2 * 2048:
+        raise AssertionError("world 2: no BA run took the point-sharded branch")
+    if f"r1/2] reprojection error" in log or "r0/2] reprojection error" not in log:
+        raise AssertionError("world 2: the statistics were not written by rank 0 alone")
+    ref = os.path.join(work, "out-w1-sgm")
+    rc, _, wall1 = run_cli(["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz",
+                            f"-Pout={ref}", "--dense", "--sgm", "--artifacts"],
+                           "chip_smoke_world1_sgm_ref.log")
+    if rc != 0:
+        raise AssertionError(f"world-1 --sgm reference exited {rc}")
+    depth_maps_equal(out2, ref, n_views, "world 2 --sgm")
+    say(card, f"world 2 --sgm: {n_views} depth maps bit-equal to the world-1 run resumed from "
+              f"its scene.npz (reference dense wall {wall1:.2f} s)")
+
+    out3 = os.path.join(work, "out-w2-pm")
+    argv = ["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz", f"-Pout={out3}",
+            "-Pdense-method=patchmatch", "--dense", "--mesh", "--colored", "--stats",
+            "--artifacts"]
+    log_pm, wall_pm = torchrun_cli(argv, 2, "chip_smoke_world2_pm.log", 600)
+    reports_pm = rank_report(log_pm, 2)
+    share_pm, n_pm = dense_accuracy(out3, gt_R, gt_C)
+    say(card, f"world 2 PatchMatch: {n_pm} dense points, {share_pm:.4%} within 1% of depth "
+              f"(limit {PM_DENSE_SHARE_LIMIT:.0%})")
+    say_ranks(card, "world 2 PatchMatch", reports_pm, wall_pm, "world 1: " + world1)
+    for r in range(2):
+        if reports_pm[r]["launches"]["pm_score_rect"] <= 0:
+            raise AssertionError(f"world 2 PatchMatch: rank {r} never launched K3")
+    if not share_pm >= PM_DENSE_SHARE_LIMIT:
+        raise AssertionError(f"world 2 PatchMatch: {share_pm:.4%} of points on the surfaces")
+    ref = os.path.join(work, "out-w1-pm")
+    rc, _, _ = run_cli(["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz", f"-Pout={ref}",
+                        "-Pdense-method=patchmatch", "--dense", "--artifacts"],
+                       "chip_smoke_world1_pm_ref.log")
+    if rc != 0:
+        raise AssertionError(f"world-1 PatchMatch reference exited {rc}")
+    depth_maps_equal(out3, ref, n_views, "world 2 PatchMatch")
+    say(card, f"world 2 PatchMatch: {n_views} depth maps bit-equal to the world-1 run")
+    return {"sgm": [rp["launches"] for rp in reports],
+            "patchmatch": [rp["launches"] for rp in reports_pm]}
+
+
+def phase_nccl_world1(card: str, work: str) -> dict:
+    """15a: NCCL_WORLD1 in a one-rank nccl group (a subprocess with
+    torchrun's environment) on 15b's scene.npz. Returns the sharded calls'
+    kernel launches."""
+    env = dict(os.environ, PYTHONPATH=ROOT, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    res = subprocess.run([sys.executable, "-c", NCCL_WORLD1,
+                          os.path.join(work, "out-w2", "scene.npz")],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    with open(os.path.join(LOG_DIR, "chip_smoke_nccl_world1.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"world-1 nccl run exited {res.returncode}:\n"
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    r = json.loads(res.stdout.strip().splitlines()[-1])
+    say(card, f"world 1 ({r['backend']}): sharded functions on {r['views']} 1080p views, "
+              f"bit-equal to the one-rank functions: {r['equal']}; BA {r['ba_iterations']} "
+              f"iterations, rect max_disp {r['max_disp']}; launches {r['launches']}; sharded "
+              f"wall {r['wall_s']:.2f} s, collectives "
+              + "; ".join(f"{k} {t:.4f} s x{n}" for k, (t, n) in r["collectives"].items()))
+    dg = r["digest"]
+    say(card, f"entry digest of {tuple(dg['shape'])} bf16 ({dg['MB']:.1f} MB) on the card: "
+              f"device fingerprint {dg['ms']['device_fingerprint']:.3f} ms, host bytes + "
+              f"blake2b {dg['ms']['host_bytes']:.3f} ms (median of 3)")
+    if r["backend"] != "nccl":
+        raise AssertionError(f"world 1 ran on {r['backend']}, not nccl")
+    if not all(r["equal"].values()):
+        raise AssertionError(f"world 1 nccl: not bit-equal: {r['equal']}")
+    if not all(n > 0 for n in r["launches"].values()):
+        raise AssertionError(f"world 1 nccl: a kernel was not launched: {r['launches']}")
+    return r["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
@@ -1526,6 +1915,19 @@ def run_phases(card: str, phases: set, work: str) -> int:
         t0 = time.perf_counter()
         k1x.update(phase_exact_real_size(card, work))
         say(card, f"phase 14: {time.perf_counter() - t0:.2f} s")
+    if 15 in phases:
+        t0 = time.perf_counter()
+        w2 = phase_world2(card, work)
+        n1 = phase_nccl_world1(card, work)
+        # each rank's launches at world 2 (gloo), and world 1 on nccl
+        entry["launches_world2"] = [r["two_nn_batch_fused"] for r in w2["sgm"]]
+        k2b["launches_world2"] = [r["sgm_hpair"] + r["sgm_dir_acc"] for r in w2["sgm"]]
+        k3["launches_world2"] = [r["pm_score_rect"] for r in w2["patchmatch"]]
+        entry["launches_nccl_world1"] = n1["two_nn_batch_fused"]
+        k1x["launches_nccl_world1"] = n1["two_nn_exact_batch"]
+        k2b["launches_nccl_world1"] = n1["sgm_hpair"] + n1["sgm_dir_acc"]
+        k3["launches_nccl_world1"] = n1["pm_score_rect"]
+        say(card, f"phase 15: {time.perf_counter() - t0:.2f} s")
     if phases != ALL_PHASES:
         print(f"partial run (phases {sorted(phases)}): no result line", flush=True)
         return 4

@@ -9,6 +9,12 @@ resumed from a checkpoint (-Presume=). The flags are the JAX package's.
 Work runs on the card (-Pdevice=cuda, the default; the run fails without
 one) or, when asked with -Pdevice=cpu, on the CPU, where every kernel
 wrapper takes its plain PyTorch version.
+
+Launched once per rank by torchrun, the CLI joins the process group first
+(parallel/distributed.py) and each rank takes its card. Every rank runs
+the replicated stages (features, RANSAC, PnP, triangulation); matching,
+bundle adjustment and the depth maps run sharded over the ranks. Rank 0
+alone wipes -Pout= and writes the outputs.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ import tempfile
 
 import numpy as np
 
+from sfm_mvs_pipeline_tpu_torch.parallel import distributed
 from sfm_mvs_pipeline_tpu_torch.utils import logger as logging
+from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
 from sfm_mvs_pipeline_tpu_torch.utils.args import AppArgs
 
 log = logging.AppLogger("PhotogrammetrieCli")
@@ -82,7 +90,16 @@ def print_usage() -> None:
   --stats                            write statistics CSVs + resource samples
   --artifacts                        keep debug artifacts (keypoints, matches,
                                      depth maps)
-  --help"""
+  --stage-times                      time the stages with synchronising timers
+                                     and log each stage's wall, the time in
+                                     collectives and the kernels' launch
+                                     counts at the end
+  --help
+
+Under torchrun (one process per rank, e.g. python -m torch.distributed.run
+--standalone --nproc-per-node=2 -m sfm_mvs_pipeline_tpu_torch ...) matching,
+bundle adjustment and the depth maps run sharded over the ranks: nccl when
+every rank has its own card, gloo when ranks share one or run on the CPU."""
     )
 
 
@@ -97,6 +114,19 @@ def main(args: AppArgs) -> int:
     if args.is_flag("help"):
         print_usage()
         return 0
+    import torch.distributed as dist
+
+    # first: under torchrun, join the group and take this rank's card
+    joined = not dist.is_initialized()
+    distributed.initialize_distributed(backend="gloo" if _device_name(args) == "cpu" else None)
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            distributed.shutdown_distributed()
+
+
+def _main(args: AppArgs) -> int:
     out_dir = args.get("out", "out")
     image_args = args.get_all("image")
     resume = args.get("resume")
@@ -105,28 +135,35 @@ def main(args: AppArgs) -> int:
         print_usage()
         return 2
     dev = _device(args)  # before the workdir wipe: a run without its card fails first
+    writer = distributed.process_index() == 0
 
     # a resume checkpoint inside the output dir (resuming from the previous
-    # run's own scene.npz) must survive the workdir wipe below: stash it in a
-    # temporary directory, removed again when the run ends
-    stash = None
+    # run's own scene.npz) must survive the workdir wipe below: rank 0
+    # stashes it in a temporary directory, removed again when the run ends
+    stash = stashed = None
     if resume and os.path.exists(resume):
         r_real = os.path.realpath(resume)
         out_real = os.path.realpath(out_dir)
-        if r_real == out_real or r_real.startswith(out_real + os.sep):
+        if writer and (r_real == out_real or r_real.startswith(out_real + os.sep)):
             stash = tempfile.mkdtemp(prefix="sfm_resume_")
             for p in (resume, resume + ".json"):
                 if os.path.exists(p):
                     shutil.copy2(p, stash)
-            args.params["resume"] = [os.path.join(stash, os.path.basename(resume))]
+        stashed = distributed.broadcast_object(stash)
+        if stashed:
+            args.params["resume"] = [os.path.join(stashed, os.path.basename(resume))]
     try:
-        prepare_working_dir(out_dir)
+        if writer:
+            prepare_working_dir(out_dir)
+        distributed.barrier()  # no rank writes or reads -Pout= before the wipe
         sampler = None
-        if args.is_flag("stats"):
+        if args.is_flag("stats") and writer:
             from sfm_mvs_pipeline_tpu_torch.utils.stats import ResourceSampler
 
             sampler = ResourceSampler(os.path.join(out_dir, "app.stat.csv"))
             sampler.start()
+        if args.is_flag("stage-times"):
+            stage_timer.enable()
         try:
             if args.get("resume"):
                 return _run_resumed(args, out_dir, args.get("resume"), dev)
@@ -134,9 +171,31 @@ def main(args: AppArgs) -> int:
         finally:
             if sampler:
                 sampler.stop()
+            if args.is_flag("stage-times"):
+                _log_stage_times()
+                stage_timer.enable(False)
     finally:
-        if stash:
-            shutil.rmtree(stash, ignore_errors=True)
+        if stashed:
+            distributed.barrier()  # every rank has read the stashed checkpoint
+            if writer:
+                shutil.rmtree(stashed, ignore_errors=True)
+
+
+def _log_stage_times() -> None:
+    """--stage-times: each stage's wall (collectives included) and each
+    kernel's launches in this process, one line each."""
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
+
+    split = stage_timer.report()
+    log.info("stage times: " + "; ".join(f"{k} {t:.3f} s x{n}" for k, (t, n) in split.items()))
+    kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
+               sgm_kernel.sgm_bidir, sgm_kernel.sgm_hpair, sgm_kernel.sgm_dir_acc,
+               pm_kernel.pm_score_rect)
+    log.info("kernel launches: " + ", ".join(f"{k.__name__} {k.launches}" for k in kernels))
+
+
+def _device_name(args: AppArgs) -> str:
+    return args.get("device", "cuda").lower()
 
 
 def _device(args: AppArgs):
@@ -146,7 +205,7 @@ def _device(args: AppArgs):
 
     from sfm_mvs_pipeline_tpu_torch import default_device
 
-    name = args.get("device", "cuda").lower()
+    name = _device_name(args)
     if name == "cuda":
         return default_device()
     if name == "cpu":
@@ -272,28 +331,30 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
         log.error("reconstruction failed: no baseline pair")
         return 1
 
-    # ---- outputs (ref: runSfM artifact block PhotogrammetrieCli.cpp:113-137)
+    # ---- outputs (ref: runSfM artifact block PhotogrammetrieCli.cpp:113-137),
+    # written by rank 0 alone
     if args.is_flag("colored"):
         colorize_points(scene)
-    live = scene.point_valid
-    write_ply_points(
-        os.path.join(out_dir, "pointcloud_sparse.ply"),
-        scene.points[live],
-        scene.colors[live] if args.is_flag("colored") else None,
-    )
-    write_camera_frustums_ply(
-        os.path.join(out_dir, "cameras_recovered.ply"),
-        scene.poses[scene.recovered],
-        scene.intrinsics[0],
-        (w, h),
-    )
-    if args.is_flag("stats"):
-        st = write_reprojection_stats(scene, out_dir)
-        log.info(f"reprojection error: mean {st['mean']:.3f} median {st['median']:.3f}")
-    if args.is_flag("artifacts"):
-        _write_artifacts(scene, out_dir, dev)
-    # durable scene checkpoint, the same format the JAX package writes
-    save_scene(scene, os.path.join(out_dir, "scene.npz"))
+    if distributed.process_index() == 0:
+        live = scene.point_valid
+        write_ply_points(
+            os.path.join(out_dir, "pointcloud_sparse.ply"),
+            scene.points[live],
+            scene.colors[live] if args.is_flag("colored") else None,
+        )
+        write_camera_frustums_ply(
+            os.path.join(out_dir, "cameras_recovered.ply"),
+            scene.poses[scene.recovered],
+            scene.intrinsics[0],
+            (w, h),
+        )
+        if args.is_flag("stats"):
+            st = write_reprojection_stats(scene, out_dir)
+            log.info(f"reprojection error: mean {st['mean']:.3f} median {st['median']:.3f}")
+        if args.is_flag("artifacts"):
+            _write_artifacts(scene, out_dir, dev)
+        # durable scene checkpoint, the same format the JAX package writes
+        save_scene(scene, os.path.join(out_dir, "scene.npz"))
     if args.is_flag("dense"):
         _run_dense(args, scene, out_dir, dev)
     log.info("done")
@@ -330,21 +391,22 @@ def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, dev) -> int:
              f"{scene.n_obs} observations")
     if args.is_flag("colored"):
         colorize_points(scene)
-    # re-save the checkpoint into the (wiped) workdir so resumed runs keep
-    # the artifact contract of full runs and can themselves be resumed
-    save_scene(scene, os.path.join(out_dir, "scene.npz"))
-    live = scene.point_valid
-    write_ply_points(
-        os.path.join(out_dir, "pointcloud_sparse.ply"),
-        scene.points[live],
-        scene.colors[live] if args.is_flag("colored") else None,
-    )
-    write_camera_frustums_ply(
-        os.path.join(out_dir, "cameras_recovered.ply"),
-        scene.poses[scene.recovered],
-        scene.intrinsics[0],
-        scene.image_size,
-    )
+    if distributed.process_index() == 0:
+        # re-save the checkpoint into the (wiped) workdir so resumed runs keep
+        # the artifact contract of full runs and can themselves be resumed
+        save_scene(scene, os.path.join(out_dir, "scene.npz"))
+        live = scene.point_valid
+        write_ply_points(
+            os.path.join(out_dir, "pointcloud_sparse.ply"),
+            scene.points[live],
+            scene.colors[live] if args.is_flag("colored") else None,
+        )
+        write_camera_frustums_ply(
+            os.path.join(out_dir, "cameras_recovered.ply"),
+            scene.poses[scene.recovered],
+            scene.intrinsics[0],
+            scene.image_size,
+        )
     if args.is_flag("dense"):
         _run_dense(args, scene, out_dir, dev)
     log.info("done")

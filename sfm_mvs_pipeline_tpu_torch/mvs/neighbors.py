@@ -93,3 +93,23 @@ def depth_range(scene, shot: int, pad: float = 0.25) -> tuple[float, float]:
     hi = float(np.percentile(z, 98))
     span = hi - lo
     return max(lo - pad * span, 1e-3), hi + pad * span
+
+
+def fixed_neighbor_table(
+    neighbors: dict, rec: list, capacity: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Fixed-capacity neighbour table over LOCAL view indices (a copy of
+    sfm_mvs_pipeline_tpu/parallel/mvs.py::fixed_neighbor_table).
+
+    neighbors: {shot_id: [shot_id, ...]} from select_neighbors; rec:
+    recovered shot ids in local order. Returns (idx (V, N), valid (V, N)).
+    """
+    idx_of = {s: i for i, s in enumerate(rec)}
+    V = len(rec)
+    idx = np.zeros((V, capacity), np.int32)
+    valid = np.zeros((V, capacity), bool)
+    for i, s in enumerate(rec):
+        loc = [idx_of[n] for n in neighbors.get(s, []) if n in idx_of][:capacity]
+        idx[i, : len(loc)] = loc
+        valid[i, : len(loc)] = True
+    return idx, valid

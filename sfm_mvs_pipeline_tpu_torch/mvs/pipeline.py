@@ -10,12 +10,19 @@ exporter's undistorted-image handoff (ref: OpenMvsUtils.cpp:136-152):
     --sgm (ref: MVS.cpp:112-120)
   * meshing + cleanup + optional refine/texture (ref: MVS.cpp:130-181)
 
-One device: the view-sharded branch of the JAX package (parallel/mvs.py)
-is not ported. `patchmatch` runs classic PatchMatch in the rectified frame
-of each pair (kernel K3) on every device, where the JAX package does so on
-its TPU only; views whose every neighbour fails the rectification geometry
-gate take the warp-based PatchMatch, seeded from the rectified sweep. As in
-the JAX package, `patchmatch` with --sgm runs the sweep engine with SGM.
+Every view's depth map comes from one function, depth_map_view, and
+depth_maps_by_view runs it over the views: on one rank for every view, in
+a process group of more than one rank for each rank's block of the views,
+gathered to every rank, so the depth maps do not depend on the world
+size. Every rank then fuses and meshes; rank 0 alone writes.
+`patchmatch` runs classic PatchMatch in the rectified frame of each pair
+(kernel K3) on every device, where the JAX package does so on its TPU's
+one-device path only; views whose every
+neighbour fails the rectification geometry gate take the warp-based
+PatchMatch, seeded from the rectified sweep. As in the JAX package,
+`patchmatch` with --sgm runs the sweep engine with SGM. Each view's rect
+engine takes its own derive_max_disp, where the JAX package's sharded
+branch takes the largest over the views.
 """
 
 from __future__ import annotations
@@ -98,18 +105,14 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
 
     from sfm_mvs_pipeline_tpu_torch import resolve_device
     from sfm_mvs_pipeline_tpu_torch.mvs.fusion import fuse_depth_maps
-    from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import depth_range, select_neighbors
-    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import (
-        make_depth_planes,
-        sweep_cost_volume,
-        wta_depth,
+    from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import (
+        depth_range,
+        fixed_neighbor_table,
+        select_neighbors,
     )
-    from sfm_mvs_pipeline_tpu_torch.mvs.rectified import (
-        derive_max_disp,
-        rect_geometry_ok,
-        rectified_depth,
-    )
-    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_aggregate
+    from sfm_mvs_pipeline_tpu_torch.mvs.rectified import rect_geometry_ok
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import check_agree
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
     from sfm_mvs_pipeline_tpu_torch.utils.images import load_rgb
     from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_points
 
@@ -157,17 +160,14 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
     neighbors = select_neighbors(scene, cfg.n_neighbors)
     idx_of = {s: i for i, s in enumerate(rec)}
 
-    depth_maps = np.zeros((len(rec), h, w), np.float32)
-    valids = np.zeros((len(rec), h, w), bool)
     poses = scene.poses[rec].astype(np.float32)
     poses_d = torch.as_tensor(poses, device=dev)
     intr_d = torch.as_tensor(intr_pinhole, dtype=torch.float32, device=dev)
 
     # Rect-engine degeneracy precheck: views whose EVERY neighbor fails the
     # rectification-geometry gate (near-forward motion) would produce empty
-    # depth maps; route those views through the warp-based plane sweep
-    # instead, and log partially-masked views.
-    rect_fallback: set[int] = set()
+    # depth maps, so depth_map_view routes them through the plane sweep;
+    # logged here with the partially-masked views.
     if cfg.method == "rect":
         for i, s in enumerate(rec):
             nbrs_i = [idx_of[n] for n in neighbors.get(s, []) if n in idx_of]
@@ -176,7 +176,6 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             geom_ok = rect_geometry_ok(poses[i], poses[nbrs_i])
             n_bad = int((~geom_ok).sum())
             if not geom_ok.any():
-                rect_fallback.add(i)
                 log(
                     f"view {s}: all {len(nbrs_i)} neighbors fail the "
                     "rectification geometry gate (near-forward baseline) — "
@@ -186,47 +185,28 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
                 log(f"view {s}: {n_bad}/{len(nbrs_i)} neighbors masked by "
                     "the rectification geometry gate")
 
-    for i, s in enumerate(rec):
+    def one_view(i):
+        s = rec[i]
         nbrs = [idx_of[n] for n in neighbors.get(s, []) if n in idx_of]
         if not nbrs:
             log(f"view {s}: no neighbors, skipped")
-            continue
+            return None
         z_lo, z_hi = depth_range(scene, s)
-        tag = ""
-        if cfg.method == "patchmatch" and not cfg.use_sgm:
-            depth, cost, valid, tag = _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d,
-                                                       intr_d, float(intr_pinhole[0]), z_lo,
-                                                       z_hi, w)
-        elif cfg.method == "rect" and i not in rect_fallback:
-            # --sgm composes with the rectified engine: 4-path aggregation
-            # on the per-pair rectified disparity volume
-            cap = cfg.n_neighbors
-            nb = (nbrs + [nbrs[0]] * cap)[:cap]
-            nb_ok = np.zeros(cap, bool)
-            nb_ok[: min(len(nbrs), cap)] = True
-            md = derive_max_disp(poses[i], poses[nb], float(intr_pinhole[0]), float(z_lo), w)
-            depth, cost, valid = rectified_depth(
-                grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi,
-                n_levels=cfg.n_planes, window_radius=cfg.window_radius,
-                max_cost=cfg.max_cost, max_disp=md, nbr_valid=nb_ok,
-                use_sgm=cfg.use_sgm, sgm_p1=cfg.sgm_p1, sgm_p2=cfg.sgm_p2,
-            )
-        else:
-            planes = torch.as_tensor(
-                make_depth_planes(z_lo, z_hi, cfg.n_planes).astype(np.float32), device=dev)
-            with stage("sweep"):
-                cv = sweep_cost_volume(grays_d[i], grays_d[nbrs], poses_d[i], poses_d[nbrs],
-                                       intr_d, planes, window_radius=cfg.window_radius)
-            if cfg.use_sgm:
-                with stage("sgm"):
-                    cv = sgm_aggregate(cv, cfg.sgm_p1, cfg.sgm_p2)
-            with stage("sweep"):
-                depth, cost, valid = wta_depth(cv, planes, cfg.max_cost)
-        depth_maps[i] = depth.cpu().numpy()
-        valids[i] = valid.cpu().numpy()
+        depth, valid, tag = depth_map_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d,
+                                           float(intr_pinhole[0]), z_lo, z_hi, w)
         log(f"view {s}: depth range [{z_lo:.2f}, {z_hi:.2f}], "
-            f"{int(valids[i].sum())}/{h*w} valid px{tag}")
-        if cfg.keep_artifacts:
+            f"{int(valid.sum())}/{h*w} valid px{tag}")
+        return depth, valid
+
+    rank, size = world()
+    if size > 1:
+        log(f"view-sharded depth maps over {size} ranks")
+        check_agree("run_mvs", grays, poses, intr_pinhole,
+                    *fixed_neighbor_table(neighbors, rec, cfg.n_neighbors),
+                    np.array([depth_range(scene, s) for s in rec]))
+    depth_maps, valids = depth_maps_by_view(len(rec), one_view, h, w, dev)
+    if cfg.keep_artifacts and rank == 0:
+        for i, s in enumerate(rec):
             np.save(os.path.join(out_dir, f"depth_{s:04d}.npy"), depth_maps[i])
 
     with stage("fusion"):
@@ -239,14 +219,97 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             device=dev,
         )
         log(f"fused dense cloud: {len(fused['points'])} points")
-        write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
-                         fused["points"], fused["colors"], fused["normals"])
+        if rank == 0:
+            write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
+                             fused["points"], fused["colors"], fused["normals"])
 
     results = {"dense": fused, "depth_maps": depth_maps, "valids": valids}
     if cfg.mesh:
         results["mesh"] = _mesh(cfg, out_dir, depth_maps, valids, poses,
                                 intr_pinhole.astype(np.float32), rgbs, grays, log, results, dev)
     return results
+
+
+def depth_map_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo, z_hi, w,
+                   planes=None, max_disp=None):
+    """Depth map of view `i` (its index in the recovered views) from its
+    neighbours `nbrs` (indices into the same views), by cfg.method: the
+    rect engine (--sgm: SGM on each pair's volume, kernel K2a or K2b), the
+    plane sweep for a rect view whose every neighbour fails the
+    rectification geometry gate and for `sweep` (--sgm: the sweep volume
+    aggregated), or PatchMatch (_patchmatch_view; with --sgm the sweep).
+    `planes` is the sweep's ladder (default: make_depth_planes over [z_lo,
+    z_hi] with cfg.n_planes); `max_disp` the rect engine's disparity bound
+    (default: this view's derive_max_disp). Returns (depth, valid, log tag)
+    on the device. run_mvs (through depth_maps_by_view) and the JAX-signature
+    entry parallel/mvs.py::compute_depth_maps_sharded both call this."""
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import (
+        make_depth_planes,
+        sweep_cost_volume,
+        wta_depth,
+    )
+    from sfm_mvs_pipeline_tpu_torch.mvs.rectified import (
+        derive_max_disp,
+        rect_geometry_ok,
+        rectified_depth,
+    )
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import sgm_aggregate
+
+    if cfg.method == "patchmatch" and not cfg.use_sgm:
+        depth, _, valid, tag = _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d,
+                                                focal, z_lo, z_hi, w)
+        return depth, valid, tag
+    if cfg.method == "rect" and rect_geometry_ok(poses[i], poses[nbrs]).any():
+        # --sgm composes with the rectified engine: 4-path aggregation
+        # on the per-pair rectified disparity volume
+        cap = cfg.n_neighbors
+        nb = (nbrs + [nbrs[0]] * cap)[:cap]
+        nb_ok = np.zeros(cap, bool)
+        nb_ok[: min(len(nbrs), cap)] = True
+        if max_disp is None:
+            max_disp = derive_max_disp(poses[i], poses[nb], focal, float(z_lo), w)
+        depth, _, valid = rectified_depth(
+            grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi,
+            n_levels=cfg.n_planes, window_radius=cfg.window_radius,
+            max_cost=cfg.max_cost, max_disp=max_disp, nbr_valid=nb_ok,
+            use_sgm=cfg.use_sgm, sgm_p1=cfg.sgm_p1, sgm_p2=cfg.sgm_p2,
+        )
+        return depth, valid, ""
+    if planes is None:
+        planes = make_depth_planes(z_lo, z_hi, cfg.n_planes).astype(np.float32)
+    planes = torch.as_tensor(planes, device=grays_d.device)
+    with stage("sweep"):
+        cv = sweep_cost_volume(grays_d[i], grays_d[nbrs], poses_d[i], poses_d[nbrs],
+                               intr_d, planes, window_radius=cfg.window_radius)
+    if cfg.use_sgm:
+        with stage("sgm"):
+            cv = sgm_aggregate(cv, cfg.sgm_p1, cfg.sgm_p2)
+    with stage("sweep"):
+        depth, _, valid = wta_depth(cv, planes, cfg.max_cost)
+    return depth, valid, ""
+
+
+def depth_maps_by_view(n_views: int, one_view, h: int, w: int,
+                       device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """(depth (V, H, W) f32, valid (V, H, W) bool) of every view, from
+    one_view(i) -> (depth, valid) tensors, or None (no depth: zeros,
+    invalid). One rank computes every view; in a process group of more than
+    one rank each rank computes its contiguous block of the views and an
+    all_gather (valid as uint8 on the wire) brings every view to every
+    rank."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import all_gather_cat
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import block, world
+
+    rank, size = world()
+    lo, hi = block(n_views, rank, size)
+    depth = torch.zeros((hi - lo, h, w), dtype=torch.float32, device=device)
+    valid = torch.zeros((hi - lo, h, w), dtype=torch.bool, device=device)
+    for i in range(lo, min(hi, n_views)):
+        res = one_view(i)
+        if res is not None:
+            depth[i - lo], valid[i - lo] = res
+    return (all_gather_cat(depth)[:n_views].cpu().numpy(),
+            all_gather_cat(valid)[:n_views].cpu().numpy())
 
 
 def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo, z_hi, w):
@@ -299,10 +362,13 @@ def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo,
 
 
 def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, results, dev):
-    """Mesh the depth maps, optionally refine and texture; writes
+    """Mesh the depth maps, optionally refine and texture; rank 0 writes
     mesh_dense.ply (textured when cfg.texture, with its atlas PNG)."""
     from sfm_mvs_pipeline_tpu_torch.mvs.mesh import mesh_from_depth_maps
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
     from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_mesh
+
+    writer = world()[0] == 0
 
     with stage("mesh"):
         mesh = mesh_from_depth_maps(depth_maps, valids, poses, intr, rgbs,
@@ -325,11 +391,12 @@ def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, resul
 
         with stage("texture"):
             tex = build_texture_atlas(mesh["vertices"], mesh["faces"], poses, intr, rgbs)
-            write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
-                                    tex["atlas"], colors=mesh.get("colors"))
+            if writer:
+                write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
+                                        tex["atlas"], colors=mesh.get("colors"))
         log(f"textured mesh: atlas {tex['atlas'].shape[0]}x{tex['atlas'].shape[1]}")
         results["texture"] = tex
-    else:
+    elif writer:
         with stage("mesh"):
             write_ply_mesh(path, mesh["vertices"], mesh["faces"], colors=mesh.get("colors"))
     log(f"mesh: {len(mesh['vertices'])} vertices, {len(mesh['faces'])} faces")

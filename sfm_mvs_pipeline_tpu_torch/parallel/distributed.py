@@ -1,0 +1,246 @@
+"""Multi-process runtime: process-group bring-up, host-level work sharding
+and the collectives the sharded paths use.
+
+Port of sfm_mvs_pipeline_tpu/parallel/distributed.py. torchrun starts one
+process per rank and exports RANK, WORLD_SIZE, LOCAL_RANK,
+LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT; initialize_distributed
+reads them. In a single process everything degrades to no-ops, so the
+pipeline code is the same either way.
+
+The backend follows a stated rule, never a caught failure: nccl when
+every local rank has a card of its own, gloo when ranks share a card or run
+on the CPU. gloo carries the collectives through the host, so the helpers
+below hand it a CPU copy of a CUDA tensor and copy the result back (the
+transport, not a fallback), and send bool tensors as uint8. Each
+collective runs under a stage timer ("collective all_reduce", ...), so a
+measurement with the timers on reads the time spent in them.
+"""
+
+from __future__ import annotations
+
+import datetime
+import hashlib
+import os
+
+import numpy as np
+import torch
+
+from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
+from sfm_mvs_pipeline_tpu_torch.utils import logger as logging
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
+
+# ranks that diverge (one waits in a collective the others never enter)
+# fail after this long instead of gloo's default 30 minutes
+DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
+
+log = logging.AppLogger("Distributed")
+
+
+def choose_backend(local_world_size: int) -> str:
+    """nccl when every local rank has its own card; gloo when ranks share
+    a card or there is none (a caller working on the CPU passes gloo to
+    initialize_distributed)."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= local_world_size:
+        return "nccl"
+    return "gloo"
+
+
+def initialize_distributed(backend: str | None = None,
+                           timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> bool:
+    """Bring up the default process group from torchrun's environment.
+
+    Returns True when a group of more than one rank is live. A no-op
+    returning False in a single process (no WORLD_SIZE in the environment),
+    and safe to call more than once. `backend` None takes choose_backend's
+    rule; each rank takes the card LOCAL_RANK % device_count."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    size = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_size = int(os.environ.get("LOCAL_WORLD_SIZE", size))
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend is None:
+        backend = choose_backend(local_size)
+    if n_cards:
+        torch.cuda.set_device(local_rank % n_cards)
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=size,
+                            timeout=timeout)
+    logging.set_rank(rank, size)
+    where = (f"{local_size} local rank(s) on {n_cards} card(s)" if n_cards
+             else f"{local_size} local rank(s), no card")
+    log.info(f"process group: rank {rank} of {size}, backend {backend} ({where})")
+    return size > 1
+
+
+def shutdown_distributed() -> None:
+    """Leave the default process group, if this process joined one."""
+    dist = _dist()
+    if dist is not None:
+        dist.destroy_process_group()
+        logging.set_rank(0, 1)
+
+
+def process_index() -> int:
+    return world()[0]
+
+
+def process_count() -> int:
+    return world()[1]
+
+
+def host_shard(items: list | np.ndarray, pad: bool = False):
+    """The slice of a host-side work list this process owns (round-robin,
+    deterministic across ranks). With pad=True every rank gets the same
+    count (its last item repeated) so collectives stay shape-aligned."""
+    p, n = world()
+    if n == 1:
+        return items
+    own = list(items[p::n])
+    if pad:
+        per = -(-len(items) // n)
+        while len(own) < per:
+            own.append(own[-1] if own else items[0])
+    return own
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def _to_wire(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """The tensor a collective sends: on the backend's device (the rank's
+    card under nccl, the CPU under gloo), bool as uint8; a fresh copy when
+    `copy` (for the collectives that work in place)."""
+    wire = (torch.device("cuda", torch.cuda.current_device())
+            if _dist().get_backend() == "nccl" else torch.device("cpu"))
+    dtype = torch.uint8 if t.dtype == torch.bool else t.dtype
+    return t.to(device=wire, dtype=dtype, copy=copy).contiguous()
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of t over the ranks, on t's device (t itself in a single
+    process)."""
+    dist = _dist()
+    if dist is None:
+        return t
+    with stage("collective all_reduce"):
+        w = _to_wire(t, copy=True)
+        dist.all_reduce(w)
+        return w.to(device=t.device, dtype=t.dtype)
+
+
+def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's t (equal shapes) concatenated along dim 0 in rank
+    order, on t's device and in t's dtype."""
+    dist = _dist()
+    if dist is None:
+        return t
+    with stage("collective all_gather"):
+        w = _to_wire(t)
+        parts = [torch.empty_like(w) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, w)
+        return torch.cat(parts).to(device=t.device, dtype=t.dtype)
+
+
+def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Rank src's t on every rank, on t's device."""
+    dist = _dist()
+    if dist is None:
+        return t
+    with stage("collective broadcast"):
+        w = _to_wire(t, copy=True)
+        dist.broadcast(w, src)
+        return w.to(device=t.device, dtype=t.dtype)
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank src's picklable obj on every rank."""
+    dist = _dist()
+    if dist is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
+
+
+def barrier() -> None:
+    dist = _dist()
+    if dist is not None:
+        dist.barrier()
+
+
+def assemble_global(local_arrays) -> torch.Tensor:
+    """The global array from this rank's leading-axis block (images this
+    rank decoded, descriptors it extracted, ...): an all_gather of every
+    rank's block, concatenated in rank order. Single process: the block."""
+    return all_gather_cat(torch.as_tensor(local_arrays))
+
+
+def _gather_ints(value: int) -> list[int]:
+    return all_gather_cat(torch.tensor([int(value)], dtype=torch.int64)).tolist()
+
+
+def all_hosts_agree(value: int) -> bool:
+    """Cheap cross-rank consistency check (e.g. the same number of images
+    found): True when every rank passed the same value."""
+    return len(set(_gather_ints(value))) == 1
+
+
+# digest's fingerprint: rows of this many 32-bit words, summed this many
+# words at a time (bounds its int64 temporaries to 128 MiB each)
+_ROW = 4096
+_CHUNK = 1 << 24
+
+
+def _fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """(rows, 2) int64 on t's device: t's raw bits as 32-bit words (bytes
+    when its size is no multiple of 4), in rows of _ROW words, each row's
+    plain and position-weighted sums (exact in int64)."""
+    raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if raw.numel() % 4:
+        words = raw
+    else:  # a 32-bit view needs an aligned start
+        words = (raw if raw.storage_offset() % 4 == 0 else raw.clone()).view(torch.int32)
+    weights = torch.arange(1, _ROW + 1, dtype=torch.int64, device=t.device)
+    rows = [torch.zeros((0, 2), dtype=torch.int64, device=t.device)]
+    for lo in range(0, words.numel(), _CHUNK):
+        part = words[lo:lo + _CHUNK].to(torch.int64)
+        part = torch.nn.functional.pad(part, (0, (-part.numel()) % _ROW)).view(-1, _ROW)
+        rows.append(torch.stack([part.sum(1), (part * weights).sum(1)], 1))
+    return torch.cat(rows)
+
+
+def digest(*arrays) -> int:
+    """A 63-bit digest of arrays or tensors (None allowed): shapes, dtypes
+    and contents. A tensor is fingerprinted where it lies (_fingerprint);
+    only the fingerprint, 1/256 of its bytes, goes to the host to be
+    hashed."""
+    h = hashlib.blake2b(digest_size=8)
+    for a in arrays:
+        if a is None:
+            h.update(b"None")
+            continue
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(a))
+        h.update(f"{tuple(t.shape)} {t.dtype};".encode())
+        h.update(_fingerprint(t).cpu().numpy().tobytes())
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def check_agree(what: str, *arrays) -> None:
+    """Raise when the ranks hold different `arrays` at the entry of a
+    sharded function: ranks that repeat the replicated stages and diverge
+    (another view registered, a restart on one rank only) would otherwise
+    feed the collectives mismatched work."""
+    if _dist() is None:
+        return
+    seen = _gather_ints(digest(*arrays))
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"{what}: the ranks' inputs differ (digests by rank {seen}); "
+                           f"the replicated stages diverged")

@@ -159,6 +159,21 @@ def _damp(Hcc: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return Hcc + torch.diag(lam * torch.clamp(diagH, min=1e-8))
 
 
+def _reduced_system(Hcc, g_full, S_corr, rhs_corr, cost, lam, reduce):
+    """The damped reduced camera system (S_red, rhs, cost) from its terms.
+
+    `reduce` (None on one rank) sums one flat buffer of the five undamped
+    terms over the ranks first, as the JAX package psums them: damping a
+    rank's partial Hcc would give another system."""
+    if reduce is not None:
+        D = g_full.shape[0]
+        flat = reduce(torch.cat([Hcc.reshape(-1), g_full, S_corr.reshape(-1), rhs_corr,
+                                 cost.reshape(1)]))
+        Hcc, g_full, S_corr, rhs_corr, cost = torch.split(flat, [D * D, D, D * D, D, 1])
+        Hcc, S_corr, cost = Hcc.reshape(D, D), S_corr.reshape(D, D), cost[0]
+    return _damp(Hcc, lam) - S_corr, -g_full + rhs_corr, cost
+
+
 def equilibrated_cholesky_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve S x = rhs on the device in working precision: Jacobi
     equilibration, Cholesky, one refinement step. Rows with a ~0 diagonal
@@ -225,10 +240,10 @@ def _obs_jacobians(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv
 
 
 def ba_build_track(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv,
-                   obs_w, track_tab, lam, intr_mask, pose_free, n_shots, n_cams):
+                   obs_w, track_tab, lam, intr_mask, pose_free, n_shots, n_cams, reduce=None):
     """Schur-reduced camera system on the (P, L) track table. Returns
     (S_red (D, D), rhs (D,), back-substitution closure dcam -> (dX, dpose,
-    dintr), cost)."""
+    dintr), cost); `reduce` as in _reduced_system."""
     dt, dev = points.dtype, points.device
     P = points.shape[0]
     D = 6 * n_shots + 7 * n_cams
@@ -301,8 +316,7 @@ def ba_build_track(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv
         gp_l.append(gp_c)
     Bp = torch.cat(Bp_l)
     gp = torch.cat(gp_l)
-    S_red = _damp(Hcc, lam) - S_corr
-    rhs_red = -g_full + rhs_corr
+    S_red, rhs_red, cost = _reduced_system(Hcc, g_full, S_corr, rhs_corr, cost, lam, reduce)
 
     def backsub(dcam):
         dpose = dcam[: 6 * n_shots].reshape(n_shots, 6)
@@ -381,9 +395,10 @@ def _inv3x3_pm(M: torch.Tensor) -> torch.Tensor:
 
 
 def ba_build_dense(points, poses, intr, cam_of_shot, uv_ps, w_ps, lam, intr_mask,
-                   pose_free, n_shots, n_cams):
+                   pose_free, n_shots, n_cams, reduce=None):
     """Schur-reduced camera system on the dense (P, S) grid. Returns
-    (S_red, rhs, back-substitution closure, cost)."""
+    (S_red, rhs, back-substitution closure, cost); `reduce` as in
+    _reduced_system."""
     dt = points.dtype
     Jp, Jc, Ji, r = _dense_jacobians(points, poses, intr, cam_of_shot, uv_ps, w_ps)
     Ji = Ji * intr_mask[cam_of_shot].T[None, :, :, None]
@@ -421,8 +436,7 @@ def ba_build_dense(points, poses, intr, cam_of_shot, uv_ps, w_ps, lam, intr_mask
     BU = torch.einsum("abp,bdp->adp", Bp, U)
     S_corr = torch.einsum("adp,aep->de", U, BU)
     rhs_corr = torch.einsum("adp,ap->d", U, torch.einsum("abp,bp->ap", Bp, gp))
-    S_red = _damp(Hcc, lam) - S_corr
-    rhs_red = -g_full + rhs_corr
+    S_red, rhs_red, cost = _reduced_system(Hcc, g_full, S_corr, rhs_corr, cost, lam, reduce)
 
     def backsub(dcam):
         dpose = dcam[: 6 * n_shots].reshape(n_shots, 6)
@@ -458,19 +472,46 @@ def run_bundle_adjustment(
     the input dtypes) and cost, iterations, converged, lambda, table_kind."""
     from sfm_mvs_pipeline_tpu_torch import resolve_device
 
+    dev = resolve_device(device)
+    n_shots = poses.shape[0]
+    P = points.shape[0]
+    t0 = time.perf_counter()
+    grid = None
+    if P * n_shots <= DENSE_GRID_MAX_SLOTS:
+        grid = pack_dense_obs(obs_point, obs_shot, obs_uv, obs_w, P, n_shots)
+    tab = build_track_table(obs_point, obs_w, P) if grid is None else None
+    pts, pos, K, cost, it, conv, lam, table_kind = lm_solve(
+        points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_w, intr_mask,
+        pose_free, grid, tab, config, dtype, dev, verbose, t0)
+    return {
+        "points": pts.cpu().numpy().astype(points.dtype),
+        "poses": pos.cpu().numpy().astype(poses.dtype),
+        "intrinsics": K.cpu().numpy().astype(intr.dtype),
+        "cost": float(cost),
+        "iterations": it,
+        "converged": bool(conv),
+        "lambda": float(lam),
+        "table_kind": table_kind,
+    }
+
+
+def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_w, intr_mask,
+             pose_free, grid, track_tab, config, dtype, dev, verbose=False, t0=None,
+             reduce=None):
+    """The LM loop of run_bundle_adjustment on host arrays: the dense layout
+    when `grid` = pack_dense_obs(...) is given, else the track layout on
+    `track_tab`. `reduce` (None on one rank) sums a tensor over the ranks:
+    the sharded path passes it so every build and every cost sums the ranks'
+    point shards before damping and before the accept test (parallel/ba.py).
+    Returns device tensors (points, poses, intrinsics, cost), iterations,
+    converged, lambda and the table kind."""
     cfg = config or BAConfig()
     if cfg.solver not in ("device", "host"):
         raise ValueError(f"unknown BA solver {cfg.solver!r} (expected device|host)")
-    dev = resolve_device(device)
     n_shots = poses.shape[0]
     n_cams = intr.shape[0]
-    P = points.shape[0]
-
-    t0 = time.perf_counter()
-    dense = None
-    if P * n_shots <= DENSE_GRID_MAX_SLOTS:
-        dense = pack_dense_obs(obs_point, obs_shot, obs_uv, obs_w, P, n_shots)
-    table_kind = "dense" if dense is not None else "track"
+    t0 = time.perf_counter() if t0 is None else t0
+    table_kind = "dense" if grid is not None else "track"
 
     def T(x, d=dtype):
         return torch.as_tensor(np.asarray(x), dtype=d, device=dev)
@@ -481,26 +522,31 @@ def run_bundle_adjustment(
     cams = T(cam_of_shot, torch.int64)
     imask = T(intr_mask)
     pfree = T(pose_free if pose_free is not None else np.ones(n_shots))
-    if dense is not None:
-        uv_ps, w_ps = T(dense[0]), T(dense[1])
+    if grid is not None:
+        uv_ps, w_ps = T(grid[0]), T(grid[1])
 
-        def residual_cost(p, q, k):
+        def local_cost(p, q, k):
             return compute_residuals_dense(p, q, k, cams, uv_ps, w_ps)[1]
 
         def build(p, q, k, lam):
-            return ba_build_dense(p, q, k, cams, uv_ps, w_ps, lam, imask, pfree, n_shots, n_cams)
+            return ba_build_dense(p, q, k, cams, uv_ps, w_ps, lam, imask, pfree, n_shots, n_cams,
+                                  reduce)
     else:
         op, os_ = T(obs_point, torch.int64), T(obs_shot, torch.int64)
         ouv, ow = T(obs_uv), T(obs_w)
-        tab = T(build_track_table(obs_point, obs_w, P), torch.int64)
+        tab = T(track_tab, torch.int64)
 
-        def residual_cost(p, q, k):
+        def local_cost(p, q, k):
             return compute_residuals(p, q, k, cams, op, os_, ouv, ow)[1]
 
         def build(p, q, k, lam):
             return ba_build_track(
-                p, q, k, cams, op, os_, ouv, ow, tab, lam, imask, pfree, n_shots, n_cams
+                p, q, k, cams, op, os_, ouv, ow, tab, lam, imask, pfree, n_shots, n_cams, reduce
             )
+
+    def residual_cost(p, q, k):
+        c = local_cost(p, q, k)
+        return c if reduce is None else reduce(c.reshape(1))[0]
 
     solve = equilibrated_cholesky_solve if cfg.solver == "device" else _host_solve
     if verbose:
@@ -535,13 +581,4 @@ def run_bundle_adjustment(
             break
     if verbose:
         print(f"  BA: {it} iterations in {time.perf_counter() - t0:.3f}s", flush=True)
-    return {
-        "points": pts.cpu().numpy().astype(points.dtype),
-        "poses": pos.cpu().numpy().astype(poses.dtype),
-        "intrinsics": K.cpu().numpy().astype(intr.dtype),
-        "cost": float(cost),
-        "iterations": it,
-        "converged": bool(conv),
-        "lambda": float(lam),
-        "table_kind": table_kind,
-    }
+    return pts, pos, K, cost, it, conv, lam, table_kind

@@ -15,6 +15,11 @@ The driver is Python; every inner computation is one batched call on the
 device, with the pair axis written out where the JAX package uses vmap.
 Results come back to the host once per stage (`.cpu()`), and track
 bookkeeping is host numpy (models/scene.py).
+
+In a process group of more than one rank (torchrun) every rank runs
+reconstruct on the same inputs; matching runs pair-sharded and bundle
+adjustment point-sharded over the ranks (parallel/), each returning the
+same bits to every rank, so the ranks stay in step.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +48,9 @@ from sfm_mvs_pipeline_tpu_torch.ops.homography import (
 from sfm_mvs_pipeline_tpu_torch.ops.pnp import solve_pnp_ransac
 from sfm_mvs_pipeline_tpu_torch.ops.ransac import resolve_threshold, take
 from sfm_mvs_pipeline_tpu_torch.ops.triangulate import triangulate_pair
+from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
+from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
+from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
 from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig, run_bundle_adjustment
 
 
@@ -109,6 +118,10 @@ class _BogusStart(Exception):
     """A bundle adjustment of a guarded start left bogus intrinsics."""
 
 
+# bundle adjustment runs point-sharded in a process group of N > 1 ranks
+# from N times this many live observations (the JAX package's threshold)
+_SHARDED_BA_MIN_OBS = 2048
+
 # homography-ratio pairs per batched RANSAC call (bounds the (chunk, K, F)
 # residual tensors, like the JAX package's lax.map batch of 8)
 _RATIO_CHUNK = 8
@@ -168,7 +181,12 @@ def reconstruct(
     # tensor-core route (the JAX package's bf16 cast for its MXU)
     desc_d = torch.as_tensor(scene.descriptors, device=dev,
                              dtype=torch.bfloat16 if cfg.binary_descriptors else torch.float32)
-    midx, mmask, mdist = M.match_pairs_batch(
+    match = M.match_pairs_batch
+    _, n_ranks = world()
+    if n_ranks > 1 and len(pairs) >= n_ranks:
+        log(f"pair-sharded matching over {n_ranks} ranks")
+        match = functools.partial(match_pairs_sharded, device=dev)
+    midx, mmask, mdist = match(
         desc_d,
         torch.as_tensor(scene.feat_valid, device=dev),
         pairs_d,
@@ -219,7 +237,11 @@ def reconstruct(
         model = CAMERA_MODELS[scene.camera_model]
         imask = np.zeros((len(scene.intrinsics), 7))
         imask[:, list(model.opt_mask)] = 1.0
-        out = run_bundle_adjustment(
+        n_live = max(int((scene.obs_w > 0).sum()), 1)
+        # point-sharded above the JAX package's threshold of 2048 live
+        # observations a rank
+        sharded = n_ranks > 1 and n_live >= _SHARDED_BA_MIN_OBS * n_ranks
+        out = (run_bundle_adjustment_sharded if sharded else run_bundle_adjustment)(
             scene.points.astype(np.float64),
             scene.poses,
             scene.intrinsics,
@@ -245,11 +267,11 @@ def reconstruct(
         intr_d = torch.as_tensor(scene.intrinsics, dtype=dtype, device=dev)
         stats["ba_runs"] += 1
         stats["table_kind"] = out["table_kind"]
-        n_live = max(int((scene.obs_w > 0).sum()), 1)
         log(
             f"BA #{stats['ba_runs']}: cost {out['cost']:.3g} "
             f"({out['iterations']} iters, rms "
             f"{np.sqrt(2 * out['cost'] / n_live):.3f} px, table {out['table_kind']})"
+            + (f", point-sharded over {n_ranks} ranks" if sharded else "")
         )
 
     def _full_idx(a, b):

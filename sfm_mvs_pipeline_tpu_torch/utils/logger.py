@@ -3,7 +3,8 @@
 Parity with the reference's logger (ref: src/photogrammetrie/util/AppLogger.{h,cpp}):
 5 levels TRACE..ERROR, one global level, ANSI colors on ttys (forceable),
 each line carrying elapsed seconds since process start + timestamp +
-component name (AppLogger.cpp:40-94).
+component name (AppLogger.cpp:40-94). In a process group of more than one
+rank, each line also carries the rank (set_rank).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ _global_level = INFO
 _force_color = False
 _lock = threading.Lock()
 _start = time.time()
+_rank_tag = ""
 
 
 def set_level(level: int) -> None:
@@ -31,6 +33,12 @@ def set_level(level: int) -> None:
 
 def get_level() -> int:
     return _global_level
+
+
+def set_rank(rank: int, world_size: int) -> None:
+    """Tag every line with "r<rank>/<world_size>" when world_size > 1."""
+    global _rank_tag
+    _rank_tag = f" r{rank}/{world_size}" if world_size > 1 else ""
 
 
 def set_force_color(force: bool) -> None:
@@ -48,7 +56,7 @@ class AppLogger:
         use_color = _force_color or sys.stdout.isatty()
         elapsed = time.time() - _start
         ts = datetime.now().strftime("%H:%M:%S")
-        line = f"[{elapsed:8.1f}s {ts} {_NAMES[level]:5s} {self.component}] {msg}"
+        line = f"[{elapsed:8.1f}s {ts} {_NAMES[level]:5s} {self.component}{_rank_tag}] {msg}"
         if use_color:
             line = _COLORS[level] + line + _RESET
         with _lock:

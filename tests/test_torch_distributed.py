@@ -1,0 +1,239 @@
+"""The port's multi-process runtime (parallel/distributed.py), its dryrun
+and its CLI under torchrun, with real gloo process groups on the CPU.
+
+The twin of tests/test_distributed.py: worker processes are started with
+`python -c` / `-m` and torchrun's environment (RANK, WORLD_SIZE, ...) on a
+free localhost port, each with one torch thread; they import only the
+port. Every launch has a timeout.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+INSEL = os.path.join(REPO, "sample_data", "insel")
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def launch_ranks(argv: list[str], world: int, env: dict | None = None,
+                 timeout: float = 120) -> list[str]:
+    """Run `python <argv>` once per rank of a `world`-rank group on a free
+    port; returns each rank's output, failing the test on a non-zero exit
+    or the timeout (every process is killed then)."""
+    port = str(free_port())
+    procs = []
+    for rank in range(world):
+        penv = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                    LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                    OMP_NUM_THREADS="1", PYTHONPATH=REPO, **(env or {}))
+        procs.append(subprocess.Popen([sys.executable, *argv], env=penv, cwd=REPO,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0].decode())
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"{world} ranks of {argv[:2]} timed out after {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{out[-4000:]}"
+    return outs
+
+
+_HELPERS = r"""
+import os
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+
+rank = int(os.environ["RANK"])
+assert D.initialize_distributed() is True
+assert D.initialize_distributed() is True  # safe to call twice
+import torch.distributed as dist
+assert dist.get_backend() == "gloo"  # no card here
+assert D.process_count() == 2 and D.process_index() == rank
+
+# host-level work sharding: disjoint, covering; padded to equal counts
+assert D.host_shard(list(range(10))) == list(range(10))[rank::2]
+assert len(D.host_shard(list(range(5)), pad=True)) == 3
+
+# the global array from each rank's leading-axis block, in rank order
+arr = D.assemble_global(np.full((2, 3), rank, np.float32))
+assert arr.shape == (4, 3) and float(arr.sum()) == 6.0, arr
+mask = D.all_gather_cat(torch.tensor([rank == 0, True]))  # bool over gloo
+assert mask.dtype == torch.bool and mask.tolist() == [True, True, False, True]
+assert float(D.all_reduce_sum(torch.tensor([rank + 1.0], dtype=torch.float64))) == 3.0
+assert float(D.broadcast(torch.tensor([rank + 5]))) == 5
+assert D.broadcast_object({"r": rank}) == {"r": 0}
+
+assert D.all_hosts_agree(42)
+assert not D.all_hosts_agree(rank)
+D.check_agree("same", np.arange(6), None)
+try:
+    D.check_agree("diverged", np.arange(6) + rank)
+except RuntimeError as e:
+    assert "diverged" in str(e)
+else:
+    raise AssertionError("check_agree passed different inputs")
+D.barrier()
+D.shutdown_distributed()
+print(f"rank {rank} OK", flush=True)
+"""
+
+
+def test_two_process_group():
+    outs = launch_ranks(["-c", _HELPERS], 2)
+    for rank, out in enumerate(outs):
+        assert f"rank {rank} OK" in out
+        assert f"Distributed r{rank}/2] process group: rank {rank} of 2, backend gloo" in out
+
+
+def test_single_process_degenerates(monkeypatch):
+    """Single process: bring-up is a no-op, host_shard returns everything,
+    the collectives return their input, the ranks trivially agree."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import block, pad_to_multiple, world
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert D.initialize_distributed() is False
+    assert D.process_count() == 1 and D.process_index() == 0 and world() == (0, 1)
+    items = list(range(10))
+    assert D.host_shard(items) == items
+    assert D.all_hosts_agree(10)
+    D.check_agree("one", np.arange(3))
+    t = torch.arange(6.0).reshape(3, 2)
+    assert D.assemble_global(t) is t and D.all_reduce_sum(t) is t and D.broadcast(t) is t
+    assert D.choose_backend(2) == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    assert pad_to_multiple(np.arange(15), 4).tolist() == list(range(15)) + [0]
+    assert block(15, 3, 4) == (12, 16)
+
+
+def test_digest_tells_arrays_apart():
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import digest
+
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    assert digest(a) == digest(torch.from_numpy(a.copy())) == digest(a.copy())
+    b = a.copy()
+    b[2, 3] = np.nextafter(b[2, 3], np.float32(100))
+    assert digest(b) != digest(a)  # one ulp
+    assert digest(a.reshape(4, 3)) != digest(a)  # shape
+    assert digest(a.astype(np.float64)) != digest(a)  # dtype
+    assert digest(a, None) != digest(a)
+    # the fingerprint is taken on the tensor's device and does not depend
+    # on where the tensor starts in its storage (here 6 bytes in)
+    t = torch.arange(21, dtype=torch.float32).reshape(7, 3).to(torch.bfloat16)
+    assert t[1:].storage_offset() * 2 % 4 and digest(t[1:]) == digest(t[1:].clone())
+    assert digest(t[1:]) != digest(t[:-1])
+
+
+def test_dryrun_multichip_world_2():
+    outs = launch_ranks(["-m", "sfm_mvs_pipeline_tpu_torch.parallel.dryrun", "--device", "cpu"],
+                        2)
+    for rank, out in enumerate(outs):
+        assert f"dryrun rank {rank} of 2: OK" in out
+
+
+@pytest.fixture(scope="module")
+def insel_world2(tmp_path_factory):
+    """The CLI on insel at world 2 under torchrun (gloo, CPU), with
+    --dense --sgm --artifacts."""
+    out = tmp_path_factory.mktemp("cli_w2") / "out"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+           "-m", "sfm_mvs_pipeline_tpu_torch", "-Prun=photogrammetrie", "-Pdevice=cpu",
+           f"-Pimage={INSEL}", f"-Pout={out}", "--dense", "--sgm", "--artifacts", "--stats",
+           "--stage-times"]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    res = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    return out, res.stdout
+
+
+def test_cli_world2_rank0_writes(insel_world2):
+    """3/3 views, the sharded matching and depth-map branches taken on both
+    ranks, and only rank 0 wrote: every output exists, and only rank 0
+    logged the reprojection statistics it writes with the stats CSVs."""
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+
+    out, log = insel_world2
+    scene = load_scene(str(out / "scene.npz"))
+    assert int(scene.recovered.sum()) == 3
+    for r in (0, 1):
+        assert f"SfM r{r}/2] pair-sharded matching over 2 ranks" in log
+        assert f"MVS r{r}/2] view-sharded depth maps over 2 ranks" in log
+        assert f"PhotogrammetrieCli r{r}/2] stage times: " in log
+    assert "collective all_gather" in log
+    assert "PhotogrammetrieCli r0/2] reprojection error" in log
+    assert "PhotogrammetrieCli r1/2] reprojection error" not in log
+    names = sorted(os.listdir(out))
+    for name in ("pointcloud_sparse.ply", "cameras_recovered.ply", "scene.npz", "app.stat.csv",
+                 "reprojectionerror.stat.csv", "pointcloud_dense.ply", "depth_0000.npy",
+                 "depth_0002.npy", "scene.txt"):
+        assert name in names, names
+    assert not [n for n in names if n.startswith(".") or "tmp" in n], names
+
+
+def test_cli_world2_depth_maps_equal_world1(insel_world2, tmp_path):
+    """The depth maps of the world-2 run are bit-equal to a world-1 run
+    resumed from its scene.npz (one scene, so no RANSAC draw differs)."""
+    from sfm_mvs_pipeline_tpu_torch.cli.app import main
+
+    out2, _ = insel_world2
+    out1 = tmp_path / "w1"
+    rc = main(["-Prun=photogrammetrie", "-Pdevice=cpu", f"-Presume={out2 / 'scene.npz'}",
+               f"-Pout={out1}", "--dense", "--sgm", "--artifacts", "-Ploglevel=4"])
+    assert rc == 0
+    for i in range(3):
+        d1 = np.load(out1 / f"depth_{i:04d}.npy")
+        d2 = np.load(out2 / f"depth_{i:04d}.npy")
+        assert (d1 > 0).mean() > 0.5
+        np.testing.assert_array_equal(d2, d1)
+
+
+def test_cli_world2_resumes_inside_its_own_out(insel_world2, tmp_path):
+    """World 2 resumed from <out>/scene.npz with the same -Pout=: rank 0
+    stashes the checkpoint before it wipes -Pout=, every rank reads the
+    stash and waits at the barrier before rank 0 removes it, and the
+    re-saved scene.npz holds the same scene."""
+    import shutil
+
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+
+    out2, _ = insel_world2
+    out = tmp_path / "out"
+    out.mkdir()
+    for name in ("scene.npz", "scene.npz.json"):
+        shutil.copy2(out2 / name, out / name)
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    outs = launch_ranks(["-m", "sfm_mvs_pipeline_tpu_torch", "-Prun=photogrammetrie",
+                         "-Pdevice=cpu", f"-Presume={out / 'scene.npz'}", f"-Pout={out}"], 2,
+                        env={"TMPDIR": str(tmp)})
+    for rank, o in enumerate(outs):
+        assert f"PhotogrammetrieCli r{rank}/2] resumed scene: " in o, o[-2000:]
+    assert not os.listdir(tmp)  # the stash is gone
+    a, b = load_scene(str(out2 / "scene.npz")), load_scene(str(out / "scene.npz"))
+    np.testing.assert_array_equal(a.points, b.points)
+    np.testing.assert_array_equal(a.poses, b.poses)
+    assert sorted(os.listdir(out)) == ["cameras_recovered.ply", "pointcloud_sparse.ply",
+                                       "scene.npz", "scene.npz.json"]
