@@ -105,14 +105,35 @@ the CPU. Phases, each timed and each fatal on failure:
      scene, each bit-equal to the one-rank function on the same inputs.
      Each rank's walls, stage split and time in collectives are printed
      beside phases 4, 7 and 10's world-1 walls; two ranks on one card are
-     not expected to be faster. Cross-card nccl (world >= 2 on separate
-     cards) is not exercised on a one-card machine.
-Phases 7, 10, 13, 14 and 15 share one render in a temporary work dir. Prints
-the card's name and power limit, one JSON line with the kernel table, and
-as its last line {"ok": true, "device": {...}}. A run of some phases only
-prints no result line and exits 4.
+     not expected to be faster.
+ 16. the multi-device paths on four cards, one rank a card, nccl chosen
+     by the backend rule (each rank logs its card's index and UUID; four
+     distinct cards are checked), through torchrun, with each rank's
+     stage split, collectives and kernel launches printed: I-1
+     parallel/dryrun.py from an emptied kernel build dir (four ranks build
+     every source at once; K1, K1x, K2a, K3 on every rank); I-2 the 1080p
+     render with phase 7's flags and --artifacts (K1 pair-sharded, BA
+     point-sharded where a run crosses the gate, K2b); I-2b
+     run_bundle_adjustment_sharded at world 4 on I-2's scene, float64
+     within tests/test_torch_parallel.py's world-4 tolerance of
+     run_bundle_adjustment (float32 printed); I-3 PatchMatch resumed from
+     I-2's scene.npz (K3); I-4 -Pmatch-precision=exact (K1x); I-5 ORB at
+     -Pfeature-limit=0 (K1's bf16 route; rank 0 writes the 805 MB
+     scene.npz); I-6 insel with phase 6's flags (3 views and 3 pairs for 4
+     ranks: matching unsharded, rank 3 computes no view, K2a). The limits
+     of phases 3, 4, 6, 7, 10, 13 and 14; only rank 0 wrote, and in the
+     dense runs only rank 0 fused, meshed and textured (ranks 1-3 stop
+     after the depth-map gather); the depth maps of I-2, I-3 and I-6
+     bit-equal to, and their pointcloud_dense.ply and mesh_dense.ply
+     identical to, a world-1 run in this process on card 0 resumed from
+     the same scene.npz. Runs by default only on a machine with four
+     cards; on fewer, one line says so and `--phases 16` fails.
+Phases 7, 10, 13, 14, 15 and 16 share one render in a temporary work dir.
+Prints the card's name and power limit, one JSON line with the kernel
+table, and as its last line {"ok": true, "device": {...}}. A run of some
+phases only prints no result line; it exits 0 when they pass.
 
-Usage: python3 chip_smoke.py [--phases 1,2,...,15]
+Usage: python3 chip_smoke.py [--phases 1,2,...,16]
        python3 chip_smoke.py --k1x-timing ROOT [--k1x-inputs NPZ]
 The second form only times K1x of the checkout at ROOT (k1x_timing), so two
 checkouts compare in one call: parent, change, change, parent.
@@ -127,6 +148,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -146,7 +168,8 @@ K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
 K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
 K1X_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_exact_kernel.cu"
 K1X_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:88"
-ALL_PHASES = set(range(1, 16))
+ALL_PHASES = set(range(1, 16))  # the one-card phases; a full run holds them all
+FOUR_CARD_PHASE = 16  # in the default run only on a machine with four cards
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"fp32": 67e12, "bf16": 989e12}
@@ -154,12 +177,17 @@ DENSE_PARTS = ["load + undistort", "rect sweep", "sweep", "patchmatch", "sgm", "
                "fusion", "mesh", "refine", "texture"]
 
 
-def card_line() -> str:
+def card_lines() -> list[str]:
+    """Each card's name and power limit as nvidia-smi prints them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def say(card: str, msg: str) -> None:
@@ -1595,17 +1623,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def run_ranks(cmd: list[str], env: dict, timeout: float) -> subprocess.CompletedProcess:
+    """subprocess.run for a command that starts rank processes (torchrun):
+    in a session of its own, so on the timeout every process it started is
+    killed with it, and then TimeoutExpired is raised."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
 def torchrun_cli(argv: list[str], world: int, log_name: str, timeout: float) -> tuple[str, float]:
-    """The port's CLI under torchrun at `world` ranks (all on this card; the
-    ranks' backend follows the port's rule: gloo when ranks share a card),
-    with --stage-times. Returns (the ranks' merged output, wall s); raises
-    on a non-zero exit or after `timeout` s."""
+    """The port's CLI under torchrun at `world` ranks, with --stage-times;
+    the ranks' backend follows the port's rule (gloo when ranks share a
+    card, nccl when each has its own). Returns (the ranks' merged output,
+    wall s); raises on a non-zero exit or after `timeout` s."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={world}", "-m", "sfm_mvs_pipeline_tpu_torch", *argv, "--stage-times"]
     env = dict(os.environ, PYTHONPATH=ROOT,
                OMP_NUM_THREADS=str(max(1, (os.cpu_count() or world) // world)))
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    res = run_ranks(cmd, env, timeout)
     wall = time.perf_counter() - t0
     os.makedirs(LOG_DIR, exist_ok=True)
     with open(os.path.join(LOG_DIR, log_name), "w") as f:
@@ -1653,24 +1696,40 @@ def depth_maps_equal(out_a: str, out_b: str, n_views: int, label: str) -> None:
                                  f"{int((a != b).sum())} pixels")
 
 
-def dryrun_world2(card: str) -> None:
-    """parallel/dryrun.py at world 2 under torchrun (gloo, both ranks on
-    this card) from an emptied kernel build dir: both ranks build K1, K1x,
-    K2 and K3 at once (build.py writes a temporary file and renames it)."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
-           "-m", "sfm_mvs_pipeline_tpu_torch.parallel.dryrun"]
+def empty_kernel_builds() -> None:
+    """Remove the built kernel libraries, so the next process builds them
+    (this process keeps its loaded copies)."""
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
+
+    for src in (match_kernel.SOURCE, match_kernel.EXACT_SOURCE, sgm_kernel.SOURCE,
+                pm_kernel.SOURCE):
+        path = build.library_path(src)
+        if os.path.exists(path):
+            os.unlink(path)
+
+
+def dryrun_at(card: str, world: int) -> tuple[str, float]:
+    """parallel/dryrun.py at `world` ranks under torchrun, the backend by the
+    port's rule (gloo when ranks share a card, nccl when each has its own),
+    from an emptied kernel build dir: every rank builds K1, K1x, K2 and K3
+    at once (build.py writes a temporary file and renames it). Returns
+    (the ranks' output, wall s)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m", "sfm_mvs_pipeline_tpu_torch.parallel.dryrun"]
+    empty_kernel_builds()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                         capture_output=True, text=True, timeout=600)
+    res = run_ranks(cmd, dict(os.environ, PYTHONPATH=ROOT), 300)
     wall = time.perf_counter() - t0
-    with open(os.path.join(LOG_DIR, "chip_smoke_dryrun_world2.log"), "w") as f:
+    with open(os.path.join(LOG_DIR, f"chip_smoke_dryrun_world{world}.log"), "w") as f:
         f.write(res.stdout + res.stderr)
-    ok = [f"dryrun rank {r} of 2: OK" in res.stdout for r in range(2)]
+    ok = [f"dryrun rank {r} of {world}: OK" in res.stdout for r in range(world)]
     if res.returncode != 0 or not all(ok):
-        raise AssertionError(f"dryrun at world 2 exited {res.returncode}:\n"
+        raise AssertionError(f"dryrun at world {world} exited {res.returncode}:\n"
                              f"{(res.stdout + res.stderr)[-3000:]}")
-    say(card, f"dryrun at world 2 (gloo, one card), both ranks building the kernels at once "
+    backend = re.search(r"backend (\w+)", res.stdout).group(1)
+    say(card, f"dryrun at world {world} ({backend}), every rank building the kernels at once "
               f"from an emptied build dir: OK in {wall:.2f} s")
+    return res.stdout, wall
 
 
 def phase_world2(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
@@ -1687,16 +1746,9 @@ def phase_world2(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> 
     launches."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
-
     torch.cuda.empty_cache()
     data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
-    for src in (match_kernel.SOURCE, match_kernel.EXACT_SOURCE, sgm_kernel.SOURCE,
-                pm_kernel.SOURCE):
-        path = build.library_path(src)
-        if os.path.exists(path):
-            os.unlink(path)  # this process keeps its loaded copies
-    dryrun_world2(card)
+    dryrun_at(card, 2)
     out2 = os.path.join(work, "out-w2")
     argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out2}", "-Pfeature-limit=0",
             "--dense", "--sgm", "--mesh", "--colored", "--stats", "--artifacts"]
@@ -1808,26 +1860,387 @@ def phase_nccl_world1(card: str, work: str) -> dict:
     return r["launches"]
 
 
+# ------------------------------------------------------------- phase 16
+WORLD4 = 4
+
+# 16, I-2b: point-sharded BA at world 4 on nccl on the scene of I-2 (its
+# BA problem with the points moved 1 mm off their optimum, as in 15a), in
+# float64 and float32; rank 0 then runs run_bundle_adjustment on its card.
+# Prints one line "BA_REPORT {json}" from rank 0.
+NCCL_WORLD4_BA = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from sfm_mvs_pipeline_tpu_torch.models.cameras import CAMERA_MODELS
+from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
+from sfm_mvs_pipeline_tpu_torch.sfm.ba import run_bundle_adjustment
+from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+
+D.initialize_distributed()
+rank = dist.get_rank()
+dev = torch.device("cuda", torch.cuda.current_device())
+scene = load_scene(sys.argv[1])
+imask = np.zeros((len(scene.intrinsics), 7))
+imask[:, list(CAMERA_MODELS[scene.camera_model].opt_mask)] = 1.0
+points = scene.points + np.random.default_rng(0).normal(size=scene.points.shape) * 1e-3
+ba_args = (points, scene.poses, scene.intrinsics, scene.cam_of_shot,
+           scene.obs_point, scene.obs_shot, scene.obs_uv.astype(np.float64),
+           scene.obs_w.astype(np.float64), imask)
+runs = {}
+for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+    kw = dict(pose_free=scene.recovered.astype(np.float64), dtype=dtype, device=dev)
+    stage_timer.enable()
+    t0 = time.perf_counter()
+    out = run_bundle_adjustment_sharded(*ba_args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = stage_timer.report()
+    stage_timer.enable(False)
+    runs[name] = (kw, out, wall, split)
+D.shutdown_distributed()
+if rank == 0:
+    report = {"observations": int((scene.obs_w > 0).sum())}
+    for name, (kw, out, wall, split) in runs.items():
+        ref = run_bundle_adjustment(*ba_args, **kw)
+        report[name] = {
+            "cost": float(out["cost"]), "ref_cost": float(ref["cost"]),
+            "rel": abs(float(out["cost"]) - float(ref["cost"])) / abs(float(ref["cost"])),
+            "iterations": int(out["iterations"]), "ref_iterations": int(ref["iterations"]),
+            "max_abs": {k: float(np.abs(np.asarray(out[k], np.float64)
+                                        - np.asarray(ref[k], np.float64)).max())
+                        for k in ("points", "poses", "intrinsics")},
+            "wall_s": wall,
+            "collectives": {k: v for k, v in split.items() if k.startswith("collective")}}
+    print("BA_REPORT " + json.dumps(report), flush=True)
+"""
+# tests/test_torch_parallel.py's tolerance for BA (float64) at world 4 on gloo
+BA_WORLD4_COST_REL = 1e-9
+BA_WORLD4_ATOL = 1e-7
+
+
+def nccl_cards(log: str, world: int, label: str) -> list[str]:
+    """Each rank's card ("GPU-<uuid>, PCI bus <bus>") from its process-group
+    line; raises unless every rank chose nccl by the backend rule, took
+    cuda:<LOCAL_RANK> and the cards are distinct."""
+    cards = []
+    for r in range(world):
+        m = re.search(rf"r{r}/{world}\] process group: rank {r} of {world}, backend (\w+) "
+                      rf"\(\d+ local rank\(s\) on (\d+) card\(s\); this rank's card: (\d+) "
+                      rf"([^)]*)\)", log)
+        if not m:
+            raise AssertionError(f"{label}: rank {r} logged no process-group line with its card")
+        if m.group(1) != "nccl" or int(m.group(3)) != r:
+            raise AssertionError(f"{label}: rank {r} took backend {m.group(1)} on card "
+                                 f"{m.group(3)} of {m.group(2)}")
+        cards.append(m.group(4))
+    if len(set(cards)) != world:
+        raise AssertionError(f"{label}: the ranks' cards are not distinct: {cards}")
+    return cards
+
+
+def files_equal(out_a: str, out_b: str, names: list[str], label: str) -> None:
+    for name in names:
+        with open(os.path.join(out_a, name), "rb") as fa, open(os.path.join(out_b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{label}: {name} differs from the world-1 run's")
+
+
+def world4_run(card: str, label: str, argv: list[str], log_name: str, timeout: float,
+               kernels: list[str], idle_ranks: tuple = ()) -> tuple[str, list[dict]]:
+    """One CLI run at world 4 under torchrun, checked: nccl by rule on four
+    distinct cards, and each kernel in `kernels` launched on every rank
+    but `idle_ranks` (ranks with no work) and on no rank of those. Prints
+    each rank's stage split, collectives and launches. Returns (log,
+    per-rank reports)."""
+    log, wall = torchrun_cli(argv, WORLD4, log_name, timeout)
+    cards = nccl_cards(log, WORLD4, label)
+    reports = rank_report(log, WORLD4)
+    world1 = ", ".join(f"{k} {v:.2f} s" for k, v in WORLD1_WALLS.items()) or "world-1 phases not run"
+    say(card, f"{label}: torchrun wall {wall:.2f} s on four cards (nccl; "
+              + "; ".join(f"rank {r} card {r} {c}" for r, c in enumerate(cards)) + ")")
+    say_ranks(card, label, reports, wall, "world 1: " + world1)
+    for r, rep in enumerate(reports):
+        n = {k: rep["launches"][k] for k in kernels}
+        if r in idle_ranks and any(n.values()) or r not in idle_ranks and not all(n.values()):
+            raise AssertionError(f"{label}: rank {r} launches {n} (ranks without work: "
+                                 f"{idle_ranks})")
+    return log, reports
+
+
+def rank0_alone_finished(label: str, log: str, reports: list[dict], dense: bool,
+                         stats: bool = True) -> None:
+    """Only rank 0 wrote: it alone logs the statistics it writes with
+    --stats (a run from images) and, in a dense run, the dense cloud it
+    fused; and only rank 0 fused, meshed and textured: ranks 1-3 stop after
+    the depth-map gather."""
+    for what in ["reprojection error"] * stats + ["fused dense cloud"] * dense:
+        if f"r0/4] {what}" not in log or re.search(rf"r[123]/4\] {what}", log):
+            raise AssertionError(f"{label}: {what!r} was not logged by rank 0 alone")
+    if not dense:
+        return
+    for r, rep in enumerate(reports):
+        post = {"fusion", "mesh", "texture", "refine"} & set(rep["stages"])
+        if "depth-map gather" not in rep["stages"] or bool(post) != (r == 0):
+            raise AssertionError(f"{label}: rank {r} ran stages {sorted(rep['stages'])}")
+
+
+def phase_world4(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
+    """Phase 16: the multi-device paths on four cards, one rank a card,
+    nccl by the backend rule, through the CLI under torchrun (see the
+    module docstring, runs I-1 to I-6). Every world-1 reference runs in
+    this process on card 0 from the same scene.npz. Returns each kernel's
+    launches per rank."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < WORLD4:
+        raise AssertionError(f"phase 16 needs four cards; this machine has {n_cards}")
+    say(card, f"phase 16 on {n_cards} cards: " + " | ".join(card_lines()))
+    torch.cuda.empty_cache()
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    launches = {}
+
+    # I-1: the dryrun from an emptied build dir, four ranks building at once
+    log, _ = dryrun_at(card, WORLD4)
+    nccl_cards(log, WORLD4, "I-1 dryrun")
+    dry = [dict((k, int(n)) for k, n in re.findall(r"(\w+) (\d+)", line.split("launches ")[1]))
+           for line in sorted(ln for ln in log.splitlines() if "dryrun rank" in ln)]
+    if not all(all(d.values()) for d in dry):
+        raise AssertionError(f"I-1 dryrun: a kernel was not launched on a rank: {dry}")
+    say(card, f"I-1 dryrun kernel launches per rank: {dry}")
+
+    # I-2: phase 7's flags from the images
+    out2 = os.path.join(work, "out-w4")
+    dense_flags = ["--dense", "--sgm", "--mesh", "--colored"]
+    log, reports = world4_run(
+        card, "I-2 --sgm", ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out2}",
+                            "-Pfeature-limit=0", *dense_flags, "--stats", "--artifacts"],
+        "chip_smoke_world4_sgm.log", 600, ["two_nn_batch_fused", "sgm_hpair", "sgm_dir_acc"])
+    scene, med = check_outputs(out2)
+    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
+    share, n_pts = dense_accuracy(out2, gt_R, gt_C)
+    _, n_faces = ply_counts(os.path.join(out2, "mesh_dense.ply"))
+    n_live = int((scene.obs_w > 0).sum())
+    gate = 2048 * WORLD4  # sfm/incremental.py::_SHARDED_BA_MIN_OBS x world
+    ba = re.findall(r"r0/4\] BA #\d+: cost \S+ \((\d+) iters.*?(, point-sharded over 4 ranks)?$",
+                    log, re.M)
+    iters = sum(int(it) for it, sh in ba if sh)
+    n_sharded = sum(1 for _, sh in ba if sh)
+    say(card, f"I-2 --sgm: {len(rec)}/{n_views} views, ATE {rel_ate:.5%} of extent, max rel rot "
+              f"{rot:.4f} deg, median reprojection {med:.4f} px, {n_pts} dense points, "
+              f"{share:.4%} within 1% of depth (limit {DENSE_SHARE_LIMIT:.0%}), {n_faces} faces; "
+              f"{n_sharded} of {len(ba)} BA runs crossed the gate of {gate} live observations "
+              f"({n_live} at the end) and ran point-sharded, {iters} LM iterations")
+    for r, rep in enumerate(reports):
+        st = rep["stages"]
+        t_red, n_red = st.get("collective all_reduce", (0.0, 0))
+        t_dm = st.get("depth-map gather", (0.0, 0))[0]
+        say(card, f"I-2 rank {r}: collectives "
+                  + "; ".join(f"{k.split(' ', 1)[1]} {t:.4f} s x{n}" for k, (t, n) in st.items()
+                              if k.startswith("collective"))
+                  + f"; all_reduce {t_red / max(iters, 1) * 1e3:.3f} ms per sharded LM "
+                  f"iteration; depth-map gather {t_dm * 1e3:.2f} ms (synchronising timers)")
+    if len(rec) != n_views or not (rel_ate <= 0.001 and rot <= 0.25 and med < 1.0):
+        raise AssertionError(f"I-2: {len(rec)} views, ATE {rel_ate}, rot {rot}, reproj {med}")
+    if not share >= DENSE_SHARE_LIMIT or n_pts <= 0 or n_faces <= 0:
+        raise AssertionError(f"I-2: {share:.4%} of {n_pts} dense points on the surfaces, "
+                             f"{n_faces} faces")
+    for r in range(WORLD4):
+        for what in (f"SfM r{r}/4] pair-sharded matching over 4 ranks",
+                     f"MVS r{r}/4] view-sharded depth maps over 4 ranks"):
+            if what not in log:
+                raise AssertionError(f"I-2: rank {r} did not log {what!r}")
+    rank0_alone_finished("I-2", log, reports, dense=True)
+    launches["k1"] = [rp["launches"]["two_nn_batch_fused"] for rp in reports]
+    launches["k2b"] = [rp["launches"]["sgm_hpair"] + rp["launches"]["sgm_dir_acc"]
+                       for rp in reports]
+    ref2 = os.path.join(work, "out-w4-ref-sgm")
+    rc, _, wall1 = run_cli(["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz",
+                            f"-Pout={ref2}", *dense_flags, "--artifacts"],
+                           "chip_smoke_world4_ref_sgm.log")
+    if rc != 0:
+        raise AssertionError(f"I-2 world-1 reference exited {rc}")
+    depth_maps_equal(out2, ref2, n_views, "I-2")
+    files_equal(out2, ref2, ["pointcloud_dense.ply", "mesh_dense.ply"], "I-2")
+    say(card, f"I-2: {n_views} depth maps bit-equal, pointcloud_dense.ply and mesh_dense.ply "
+              f"identical to a world-1 run on card 0 resumed from its scene.npz (wall "
+              f"{wall1:.2f} s)")
+
+    # I-2b: point-sharded BA at world 4 on I-2's scene against world 1
+    ba_r = world4_ba(card, os.path.join(out2, "scene.npz"))
+    f64 = ba_r["f64"]
+    if not (f64["rel"] <= BA_WORLD4_COST_REL and f64["iterations"] == f64["ref_iterations"]
+            and max(f64["max_abs"].values()) <= BA_WORLD4_ATOL):
+        raise AssertionError(f"I-2b: sharded BA (float64) outside the world-4 tolerance: {f64}")
+
+    # I-3: PatchMatch resumed from I-2's scene.npz
+    out3 = os.path.join(work, "out-w4-pm")
+    pm_flags = ["-Pdense-method=patchmatch", "--dense", "--mesh", "--colored"]
+    log, reports = world4_run(
+        card, "I-3 PatchMatch", ["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz",
+                                 f"-Pout={out3}", *pm_flags, "--stats", "--artifacts"],
+        "chip_smoke_world4_pm.log", 600, ["pm_score_rect"])
+    share_pm, n_pm = dense_accuracy(out3, gt_R, gt_C)
+    _, n_faces = ply_counts(os.path.join(out3, "mesh_dense.ply"))
+    say(card, f"I-3 PatchMatch: {n_pm} dense points, {share_pm:.4%} within 1% of depth (limit "
+              f"{PM_DENSE_SHARE_LIMIT:.0%}), {n_faces} faces")
+    if not share_pm >= PM_DENSE_SHARE_LIMIT or n_pm <= 0 or n_faces <= 0:
+        raise AssertionError(f"I-3: {share_pm:.4%} of {n_pm} points on the surfaces, "
+                             f"{n_faces} faces")
+    rank0_alone_finished("I-3", log, reports, dense=True, stats=False)
+    launches["k3"] = [rp["launches"]["pm_score_rect"] for rp in reports]
+    ref3 = os.path.join(work, "out-w4-ref-pm")
+    rc, _, wall1 = run_cli(["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz",
+                            f"-Pout={ref3}", *pm_flags, "--artifacts"],
+                           "chip_smoke_world4_ref_pm.log")
+    if rc != 0:
+        raise AssertionError(f"I-3 world-1 reference exited {rc}")
+    depth_maps_equal(out3, ref3, n_views, "I-3")
+    files_equal(out3, ref3, ["pointcloud_dense.ply", "mesh_dense.ply"], "I-3")
+    say(card, f"I-3: {n_views} depth maps bit-equal, pointcloud_dense.ply and mesh_dense.ply "
+              f"identical to the world-1 run (wall {wall1:.2f} s)")
+
+    # I-4: -Pmatch-precision=exact (phase 14's flags), K1x pair-sharded
+    out4 = os.path.join(work, "out-w4-exact")
+    log, reports = world4_run(
+        card, "I-4 exact", ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out4}",
+                            "-Pfeature-limit=0", "-Pmatch-precision=exact", "--stats"],
+        "chip_smoke_world4_exact.log", 300, ["two_nn_exact_batch"])
+    if any(rp["launches"]["two_nn_batch_fused"] for rp in reports):
+        raise AssertionError("I-4: K1 launched in exact mode")
+    world4_sparse_limits(card, "I-4", out4, n_views, gt_R, gt_C, 0.001, 0.25)
+    rank0_alone_finished("I-4", log, reports, dense=False)
+    launches["k1x"] = [rp["launches"]["two_nn_exact_batch"] for rp in reports]
+
+    # I-5: ORB at -Pfeature-limit=0 (phase 13's flags): K1's bf16 route at
+    # (12, 65536, 256), the entry digest of 403 MB on every rank, rank 0
+    # writing the 805 MB scene.npz
+    out5 = os.path.join(work, "out-w4-orb")
+    log, reports = world4_run(
+        card, "I-5 ORB", ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out5}",
+                          "-Pfeature-detector=ORB", "-Pfeature-limit=0", "--stats"],
+        "chip_smoke_world4_orb.log", 600, ["two_nn_batch_fused"])
+    scene5 = world4_sparse_limits(card, "I-5", out5, n_views, gt_R, gt_C, ORB_ATE_LIMIT,
+                                  ORB_ROT_LIMIT_DEG)
+    from sfm_mvs_pipeline_tpu_torch.cli.photogrammetrie import _feature_cap
+
+    if scene5.descriptors.shape[1:] != (_feature_cap(1 << 18, w, h), 256):  # 65,536 at 1080p
+        raise AssertionError(f"I-5: descriptors {scene5.descriptors.shape}")
+    rank0_alone_finished("I-5", log, reports, dense=False)
+    launches["k1_orb"] = [rp["launches"]["two_nn_batch_fused"] for rp in reports]
+    say(card, f"I-5: rank 0 wrote scene.npz ({os.path.getsize(os.path.join(out5, 'scene.npz')) / 1e6:.1f}"
+              f" MB) in its outputs stage of {reports[0]['stages']['outputs'][0]:.3f} s")
+
+    # I-6: insel, phase 6's flags: 3 views and 3 pairs for 4 ranks
+    out6 = os.path.join(work, "out-w4-insel")
+    insel = os.path.join(ROOT, "sample_data", "insel")
+    log, reports = world4_run(
+        card, "I-6 insel --sgm", ["-Prun=photogrammetrie", f"-Pimage={insel}", f"-Pout={out6}",
+                                  *dense_flags, "--stats", "--artifacts"],
+        "chip_smoke_world4_insel.log", 300, ["sgm_bidir"], idle_ranks=(3,))
+    scene6, med6 = check_outputs(out6)
+    n_pts, _ = ply_counts(os.path.join(out6, "pointcloud_dense.ply"))
+    _, n_faces = ply_counts(os.path.join(out6, "mesh_dense.ply"))
+    say(card, f"I-6 insel: {int(scene6.recovered.sum())}/3 views, median reprojection "
+              f"{med6:.4f} px, {n_pts} dense points, {n_faces} faces")
+    if int(scene6.recovered.sum()) != 3 or not med6 < 1.0 or n_pts <= 0 or n_faces <= 0:
+        raise AssertionError(f"I-6: {int(scene6.recovered.sum())}/3 views, {med6} px, "
+                             f"{n_pts} points, {n_faces} faces")
+    if "pair-sharded matching" in log:
+        raise AssertionError("I-6: 3 pairs for 4 ranks were matched sharded")
+    rank0_alone_finished("I-6", log, reports, dense=True)
+    launches["k2a"] = [rp["launches"]["sgm_bidir"] for rp in reports]
+    ref6 = os.path.join(work, "out-w4-ref-insel")
+    rc, _, _ = run_cli(["-Prun=photogrammetrie", f"-Presume={out6}/scene.npz", f"-Pout={ref6}",
+                        *dense_flags, "--artifacts"], "chip_smoke_world4_ref_insel.log")
+    if rc != 0:
+        raise AssertionError(f"I-6 world-1 reference exited {rc}")
+    depth_maps_equal(out6, ref6, 3, "I-6")
+    files_equal(out6, ref6, ["pointcloud_dense.ply", "mesh_dense.ply"], "I-6")
+    say(card, "I-6: 3 depth maps bit-equal, pointcloud_dense.ply and mesh_dense.ply identical "
+              "to the world-1 run")
+    return launches
+
+
+def world4_sparse_limits(card: str, label: str, out: str, n_views: int, gt_R, gt_C,
+                         ate_limit: float, rot_limit: float):
+    """A sparse world-4 run's views, ATE, rotation and median reprojection
+    against the limits; returns its scene."""
+    scene, med = check_outputs(out)
+    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
+    say(card, f"{label}: {len(rec)}/{n_views} views, ATE {rel_ate:.5%} of extent (limit "
+              f"{ate_limit:.2%}), max rel rot {rot:.4f} deg (limit {rot_limit} deg), median "
+              f"reprojection {med:.4f} px (limit 1 px)")
+    if len(rec) != n_views or not (rel_ate <= ate_limit and rot <= rot_limit and med < 1.0):
+        raise AssertionError(f"{label}: {len(rec)} views, ATE {rel_ate}, rot {rot}, reproj {med}")
+    return scene
+
+
+def world4_ba(card: str, scene_npz: str) -> dict:
+    """I-2b: NCCL_WORLD4_BA under torchrun at world 4; returns rank 0's
+    report."""
+    script = os.path.join(os.path.dirname(scene_npz), "world4_ba.py")
+    with open(script, "w") as f:
+        f.write(NCCL_WORLD4_BA)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={WORLD4}", script, scene_npz]
+    res = run_ranks(cmd, dict(os.environ, PYTHONPATH=ROOT), 300)
+    with open(os.path.join(LOG_DIR, "chip_smoke_world4_ba.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"world-4 BA exited {res.returncode}:\n"
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    nccl_cards(res.stdout, WORLD4, "I-2b BA")
+    r = json.loads(res.stdout.split("BA_REPORT ", 1)[1].splitlines()[0])
+    for name in ("f64", "f32"):
+        b = r[name]
+        red, n_red = b["collectives"].get("collective all_reduce", (0.0, 0))
+        say(card, f"I-2b sharded BA ({name}) on I-2's scene ({r['observations']} observations): "
+                  f"cost {b['cost']!r} vs world 1 {b['ref_cost']!r} (rel {b['rel']:.3e}), "
+                  f"{b['iterations']} iterations vs {b['ref_iterations']}, max |d| "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in b["max_abs"].items())
+                  + f"; rank 0 wall {b['wall_s']:.3f} s, all_reduce {red:.4f} s x{n_red} "
+                  f"({red / max(b['iterations'], 1) * 1e3:.3f} ms per LM iteration)")
+    return r
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(map(str, sorted(ALL_PHASES))))
+    ap.add_argument("--phases", help="comma-separated phases (default: 1-15, and 16 on a "
+                    "machine with four cards)")
     ap.add_argument("--k1x-timing", metavar="ROOT",
                     help="only time K1x of the checkout at ROOT (see k1x_timing)")
     ap.add_argument("--k1x-inputs", metavar="NPZ", help="phase 14's saved K1x inputs, for "
                     f"--k1x-timing (phase 14 writes {os.path.relpath(K1X_PHASE14_INPUTS, ROOT)})")
     args = ap.parse_args()
-    phases = {int(p) for p in args.phases.split(",")}
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
         return 1
+    n_cards = torch.cuda.device_count()
+    if args.phases:
+        phases = {int(p) for p in args.phases.split(",")}
+    else:
+        phases = ALL_PHASES | ({FOUR_CARD_PHASE} if n_cards >= 4 else set())
+    if FOUR_CARD_PHASE in phases and n_cards < 4:
+        print(f"chip_smoke: phase {FOUR_CARD_PHASE} needs four cards; this machine has "
+              f"{n_cards}", file=sys.stderr)
+        return 1
     if args.k1x_timing:
         return k1x_timing(args.k1x_timing, args.k1x_inputs)
     sys.path.insert(0, ROOT)
+    os.makedirs(LOG_DIR, exist_ok=True)
     card = card_line()
     print(card, flush=True)
+    if FOUR_CARD_PHASE not in phases and not args.phases:
+        say(card, f"phase {FOUR_CARD_PHASE} (the multi-device paths on four cards) needs four "
+                  f"cards; this machine has {n_cards}: not run")
     from sfm_mvs_pipeline_tpu_torch import native
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
 
@@ -1928,9 +2341,22 @@ def run_phases(card: str, phases: set, work: str) -> int:
         k2b["launches_nccl_world1"] = n1["sgm_hpair"] + n1["sgm_dir_acc"]
         k3["launches_nccl_world1"] = n1["pm_score_rect"]
         say(card, f"phase 15: {time.perf_counter() - t0:.2f} s")
-    if phases != ALL_PHASES:
-        print(f"partial run (phases {sorted(phases)}): no result line", flush=True)
-        return 4
+    if FOUR_CARD_PHASE in phases:
+        t0 = time.perf_counter()
+        w4 = phase_world4(card, work)
+        # each rank's launches at world 4 on nccl (I-2, I-3, I-4, I-5, I-6)
+        entry["launches_world4"] = w4["k1"]
+        entry["launches_world4_orb"] = w4["k1_orb"]
+        k1x["launches_world4"] = w4["k1x"]
+        k2a["launches_world4"] = w4["k2a"]
+        k2b["launches_world4"] = w4["k2b"]
+        k3["launches_world4"] = w4["k3"]
+        print(json.dumps({"launches_world4": w4}), flush=True)
+        say(card, f"phase {FOUR_CARD_PHASE}: {time.perf_counter() - t0:.2f} s")
+    if not ALL_PHASES <= phases:
+        print(f"partial run (phases {sorted(phases)}): every phase passed; no result line",
+              flush=True)
+        return 0
     for k in (entry, k2a, k2b, k3, k1x):
         k["library_ms"] = None  # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [entry, k2a, k2b, k3, k1x]}), flush=True)

@@ -14,7 +14,8 @@ Launched once per rank by torchrun, the CLI joins the process group first
 (parallel/distributed.py) and each rank takes its card. Every rank runs
 the replicated stages (features, RANSAC, PnP, triangulation); matching,
 bundle adjustment and the depth maps run sharded over the ranks. Rank 0
-alone wipes -Pout= and writes the outputs.
+alone wipes -Pout= and writes the outputs; after the depth-map gather it
+alone fuses, meshes and textures (mvs/pipeline.py::run_mvs).
 """
 
 from __future__ import annotations
@@ -336,25 +337,26 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
     if args.is_flag("colored"):
         colorize_points(scene)
     if distributed.process_index() == 0:
-        live = scene.point_valid
-        write_ply_points(
-            os.path.join(out_dir, "pointcloud_sparse.ply"),
-            scene.points[live],
-            scene.colors[live] if args.is_flag("colored") else None,
-        )
-        write_camera_frustums_ply(
-            os.path.join(out_dir, "cameras_recovered.ply"),
-            scene.poses[scene.recovered],
-            scene.intrinsics[0],
-            (w, h),
-        )
-        if args.is_flag("stats"):
-            st = write_reprojection_stats(scene, out_dir)
-            log.info(f"reprojection error: mean {st['mean']:.3f} median {st['median']:.3f}")
-        if args.is_flag("artifacts"):
-            _write_artifacts(scene, out_dir, dev)
-        # durable scene checkpoint, the same format the JAX package writes
-        save_scene(scene, os.path.join(out_dir, "scene.npz"))
+        with stage("outputs"):
+            live = scene.point_valid
+            write_ply_points(
+                os.path.join(out_dir, "pointcloud_sparse.ply"),
+                scene.points[live],
+                scene.colors[live] if args.is_flag("colored") else None,
+            )
+            write_camera_frustums_ply(
+                os.path.join(out_dir, "cameras_recovered.ply"),
+                scene.poses[scene.recovered],
+                scene.intrinsics[0],
+                (w, h),
+            )
+            if args.is_flag("stats"):
+                st = write_reprojection_stats(scene, out_dir)
+                log.info(f"reprojection error: mean {st['mean']:.3f} median {st['median']:.3f}")
+            if args.is_flag("artifacts"):
+                _write_artifacts(scene, out_dir, dev)
+            # durable scene checkpoint, the same format the JAX package writes
+            save_scene(scene, os.path.join(out_dir, "scene.npz"))
     if args.is_flag("dense"):
         _run_dense(args, scene, out_dir, dev)
     log.info("done")

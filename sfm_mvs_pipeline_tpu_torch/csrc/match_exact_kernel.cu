@@ -559,6 +559,7 @@ extern "C" int two_nn_exact_launch(const float* desc, const long long* perm, con
                                                     static_cast<__nv_bfloat16*>(B), norm);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  // the attribute is the current device's: the wrapper makes the inputs' card current
   e = cudaFuncSetAttribute(two_nn_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(P, (F + BQ - 1) / BQ);

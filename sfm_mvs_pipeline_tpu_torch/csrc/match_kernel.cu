@@ -476,6 +476,7 @@ extern "C" int two_nn_f32_launch(const float* desc_t, int Fp, const float* qnorm
   if (P <= 0 || F <= 0) return 0;
   if (D <= 0 || D % F_BK != 0 || Fp < F || Fp % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the attribute is the current device's: the wrapper makes the inputs' card current
   cudaError_t e = cudaFuncSetAttribute(two_nn_f32_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -493,6 +494,7 @@ extern "C" int two_nn_bf16_launch(const void* desc, const float* qnorm, const fl
   if (P <= 0 || F <= 0) return 0;
   if (D <= 0 || D % B_BK != 0 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = (B_BQ * (D + B_PAD) + B_STAGES * B_BT * B_LDT) * 2;
+  // the attribute is the current device's: the wrapper makes the inputs' card current
   cudaError_t e = cudaFuncSetAttribute(two_nn_bf16_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -262,6 +262,7 @@ int launch(const float* cands, const float* ref, const float* nbr, const unsigne
   const int nspan = static_cast<int>(
       std::min<long long>(static_cast<long long>(COLS) + maxd + 2 * R + 2, NSPAN_MAX));
   const int smem = (TY + 2 * R) * 2 * plane_words(nspan) * 4 + TY * 2 * plane_words(nspan);
+  // the attribute is the current device's: the wrapper makes the inputs' card current
   const cudaError_t e = cudaFuncSetAttribute(
       pm_score_kernel<R, PAR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

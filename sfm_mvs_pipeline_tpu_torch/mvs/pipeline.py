@@ -14,7 +14,8 @@ Every view's depth map comes from one function, depth_map_view, and
 depth_maps_by_view runs it over the views: on one rank for every view, in
 a process group of more than one rank for each rank's block of the views,
 gathered to every rank, so the depth maps do not depend on the world
-size. Every rank then fuses and meshes; rank 0 alone writes.
+size. Rank 0 alone then fuses, meshes and writes; the other ranks return
+after the gather, as no collective follows it.
 `patchmatch` runs classic PatchMatch in the rectified frame of each pair
 (kernel K3) on every device, where the JAX package does so on its TPU's
 one-device path only; views whose every
@@ -100,7 +101,9 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             device: torch.device | str | None = None) -> dict:
     """Densify (and optionally mesh) a reconstructed scene on `device`
     (default: the card; raises without one). Writes pointcloud_dense.ply
-    (+ mesh_dense.ply) into out_dir. Returns results."""
+    (+ mesh_dense.ply) into out_dir. Returns results: the depth maps and
+    valids, and on rank 0 (every run outside a process group) the dense
+    cloud and mesh."""
     import cv2
 
     from sfm_mvs_pipeline_tpu_torch import resolve_device
@@ -205,7 +208,10 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
                     *fixed_neighbor_table(neighbors, rec, cfg.n_neighbors),
                     np.array([depth_range(scene, s) for s in rec]))
     depth_maps, valids = depth_maps_by_view(len(rec), one_view, h, w, dev)
-    if cfg.keep_artifacts and rank == 0:
+    results = {"depth_maps": depth_maps, "valids": valids}
+    if rank != 0:  # fusion, mesh and texture make only what rank 0 writes
+        return results
+    if cfg.keep_artifacts:
         for i, s in enumerate(rec):
             np.save(os.path.join(out_dir, f"depth_{s:04d}.npy"), depth_maps[i])
 
@@ -219,11 +225,10 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             device=dev,
         )
         log(f"fused dense cloud: {len(fused['points'])} points")
-        if rank == 0:
-            write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
-                             fused["points"], fused["colors"], fused["normals"])
+        write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
+                         fused["points"], fused["colors"], fused["normals"])
 
-    results = {"dense": fused, "depth_maps": depth_maps, "valids": valids}
+    results["dense"] = fused
     if cfg.mesh:
         results["mesh"] = _mesh(cfg, out_dir, depth_maps, valids, poses,
                                 intr_pinhole.astype(np.float32), rgbs, grays, log, results, dev)
@@ -308,8 +313,9 @@ def depth_maps_by_view(n_views: int, one_view, h: int, w: int,
         res = one_view(i)
         if res is not None:
             depth[i - lo], valid[i - lo] = res
-    return (all_gather_cat(depth)[:n_views].cpu().numpy(),
-            all_gather_cat(valid)[:n_views].cpu().numpy())
+    with stage("depth-map gather"):
+        return (all_gather_cat(depth)[:n_views].cpu().numpy(),
+                all_gather_cat(valid)[:n_views].cpu().numpy())
 
 
 def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo, z_hi, w):
@@ -362,13 +368,10 @@ def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo,
 
 
 def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, results, dev):
-    """Mesh the depth maps, optionally refine and texture; rank 0 writes
+    """Mesh the depth maps, optionally refine and texture; writes
     mesh_dense.ply (textured when cfg.texture, with its atlas PNG)."""
     from sfm_mvs_pipeline_tpu_torch.mvs.mesh import mesh_from_depth_maps
-    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
     from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_mesh
-
-    writer = world()[0] == 0
 
     with stage("mesh"):
         mesh = mesh_from_depth_maps(depth_maps, valids, poses, intr, rgbs,
@@ -391,12 +394,11 @@ def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, resul
 
         with stage("texture"):
             tex = build_texture_atlas(mesh["vertices"], mesh["faces"], poses, intr, rgbs)
-            if writer:
-                write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
-                                        tex["atlas"], colors=mesh.get("colors"))
+            write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
+                                    tex["atlas"], colors=mesh.get("colors"))
         log(f"textured mesh: atlas {tex['atlas'].shape[0]}x{tex['atlas'].shape[1]}")
         results["texture"] = tex
-    elif writer:
+    else:
         with stage("mesh"):
             write_ply_mesh(path, mesh["vertices"], mesh["faces"], colors=mesh.get("colors"))
     log(f"mesh: {len(mesh['vertices'])} vertices, {len(mesh['faces'])} faces")

@@ -16,6 +16,8 @@ imported when this module is imported.
 Dispatch: a CPU tensor takes the plain PyTorch version
 (ops/matching.py::two_nn_batch over two_nn or two_nn_exact); a CUDA tensor
 launches the kernel or raises. There is no fallback from the card to the plain version.
+A launch runs under its inputs' card (a device guard and that card's current
+stream), whichever card is current.
 """
 
 from __future__ import annotations
@@ -161,7 +163,7 @@ def two_nn_batch_fused(
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
         args = (ops.data_ptr(), fp, qn.data_ptr(), tn.data_ptr(), valid.data_ptr(), *outs)
     with torch.cuda.device(descriptors.device):
-        err = launch(*args, torch.cuda.current_stream().cuda_stream)
+        err = launch(*args, torch.cuda.current_stream(descriptors.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     two_nn_batch_fused.launches += 1
@@ -266,7 +268,7 @@ def two_nn_exact_batch(
         err = launch(
             descriptors.data_ptr(), perm.data_ptr(), count.data_ptr(), s, f, d, dp, a.data_ptr(),
             b.data_ptr(), norm.data_ptr(), pairs.data_ptr(), p, idx.data_ptr(), best.data_ptr(),
-            second.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            second.data_ptr(), torch.cuda.current_stream(descriptors.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"K1x launch failed: cudaError {err}")

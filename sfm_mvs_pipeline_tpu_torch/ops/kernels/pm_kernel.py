@@ -16,6 +16,8 @@ first use and this module loads it with ctypes.
 Dispatch: a CPU tensor takes the plain PyTorch version
 (mvs/patchmatch.py::pm_score_rect_plain); a CUDA tensor launches the kernel
 or raises. There is no fallback from the card to the plain version.
+A launch runs under its inputs' card (a device guard and that card's current
+stream), whichever card is current.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ def pm_score_rect(
     out = torch.empty_like(cands)
     lib = _load()
     with torch.cuda.device(cands.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(cands.device).cuda_stream
         err = lib.pm_score_rect_launch(
             cands.data_ptr(), ref_rect.data_ptr(), nbr_rect.data_ptr(), in_n.data_ptr(),
             r_mean.data_ptr(), r_var.data_ptr(), out.data_ptr(), c, h, w, window_radius,

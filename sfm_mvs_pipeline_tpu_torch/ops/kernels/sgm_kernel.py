@@ -26,7 +26,8 @@ first use and this module loads it with ctypes.
 
 Dispatch: a CPU tensor takes the plain PyTorch version (mvs/sgm.py); a CUDA
 tensor launches the kernel or raises. There is no fallback from the card to
-the plain version.
+the plain version. A launch runs under its inputs' card (a device guard and
+that card's current stream), whichever card is current.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def sgm_bidir(cost_hwd: torch.Tensor, p1: float, p2: float, axis: int) -> torch.
     out = torch.empty_like(cost_hwd)
     lib = _load()
     with torch.cuda.device(cost_hwd.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(cost_hwd.device).cuda_stream
         err = lib.sgm_bidir_launch(cost_hwd.data_ptr(), out.data_ptr(), S, L, step, line, D,
                                    float(p1), float(p2), stream)
     _raise_on(err, "K2a")
@@ -129,7 +130,7 @@ def sgm_hpair(cost_hwd: torch.Tensor, p1: float, p2: float) -> tuple[torch.Tenso
     copy = torch.empty(cost_hwd.shape, dtype=torch.bfloat16, device=cost_hwd.device)
     lib = _load()
     with torch.cuda.device(cost_hwd.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(cost_hwd.device).cuda_stream
         err = lib.sgm_hpair_launch(cost_hwd.data_ptr(), acc.data_ptr(), copy.data_ptr(), S, L,
                                    step, line, D, float(p1), float(p2), stream)
     _raise_on(err, "K2b (horizontal pair)")
@@ -156,7 +157,7 @@ def sgm_dir_acc(cost_hwd: torch.Tensor, acc: torch.Tensor, p1: float, p2: float,
     S, L, step, line, D = _geometry(cost_hwd, axis)
     lib = _load()
     with torch.cuda.device(cost_hwd.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(cost_hwd.device).cuda_stream
         err = lib.sgm_dir_acc_launch(cost_hwd.data_ptr(), acc.data_ptr(), S, L, step, line, D,
                                      float(p1), float(p2), int(reverse), stream)
     _raise_on(err, "K2b")

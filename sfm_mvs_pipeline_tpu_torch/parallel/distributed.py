@@ -66,15 +66,27 @@ def initialize_distributed(backend: str | None = None,
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if backend is None:
         backend = choose_backend(local_size)
+    card = None
     if n_cards:
-        torch.cuda.set_device(local_rank % n_cards)
+        card = torch.device("cuda", local_rank % n_cards)
+        torch.cuda.set_device(card)
+    # under nccl the group is bound to the rank's card, so barrier and the
+    # object collectives run there without torch guessing the device
+    bound = {"device_id": card} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=size,
-                            timeout=timeout)
+                            timeout=timeout, **bound)
     logging.set_rank(rank, size)
-    where = (f"{local_size} local rank(s) on {n_cards} card(s)" if n_cards
+    where = (f"{local_size} local rank(s) on {n_cards} card(s); this rank's card: "
+             f"{card.index} {_card_id(card)}" if n_cards
              else f"{local_size} local rank(s), no card")
     log.info(f"process group: rank {rank} of {size}, backend {backend} ({where})")
     return size > 1
+
+
+def _card_id(card: torch.device) -> str:
+    """The card's UUID as nvidia-smi prints it (GPU-...) and its PCI bus."""
+    props = torch.cuda.get_device_properties(card)
+    return f"GPU-{props.uuid}, PCI bus {props.pci_bus_id}"
 
 
 def shutdown_distributed() -> None:
@@ -166,14 +178,16 @@ def broadcast_object(obj, src: int = 0):
     if dist is None:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src)
+    with stage("collective broadcast_object"):
+        dist.broadcast_object_list(box, src)
     return box[0]
 
 
 def barrier() -> None:
     dist = _dist()
     if dist is not None:
-        dist.barrier()
+        with stage("collective barrier"):
+            dist.barrier()
 
 
 def assemble_global(local_arrays) -> torch.Tensor:

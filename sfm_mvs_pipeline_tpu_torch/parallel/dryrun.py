@@ -10,8 +10,8 @@ them on every rank at once.
     python -m torch.distributed.run --standalone --nproc-per-node=2 \\
         -m sfm_mvs_pipeline_tpu_torch.parallel.dryrun [--device cpu]
 
-Each rank prints one line and the run exits 0 when every path ran and
-every result has its shape and is finite.
+Each rank prints one line, with its kernels' launch counts, and the run
+exits 0 when every path ran and every result has its shape and is finite.
 """
 
 from __future__ import annotations
@@ -99,6 +99,7 @@ def dryrun_multichip(n_devices: int, device: torch.device | str | None = None) -
 
 
 def main() -> int:
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
     from sfm_mvs_pipeline_tpu_torch.parallel.distributed import (
         initialize_distributed,
         process_count,
@@ -112,7 +113,12 @@ def main() -> int:
     initialize_distributed(backend="gloo" if args.device == "cpu" else None)
     try:
         dryrun_multichip(process_count(), args.device)
-        print(f"dryrun rank {process_index()} of {process_count()}: OK", flush=True)
+        kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
+                   sgm_kernel.sgm_bidir, pm_kernel.pm_score_rect)
+        sys.stdout.write(f"dryrun rank {process_index()} of {process_count()}: OK; kernel "
+                         "launches " + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)
+                         + "\n")  # one write, as utils/logger.py does
+        sys.stdout.flush()
     finally:
         shutdown_distributed()
     return 0

@@ -59,8 +59,11 @@ class AppLogger:
         line = f"[{elapsed:8.1f}s {ts} {_NAMES[level]:5s} {self.component}{_rank_tag}] {msg}"
         if use_color:
             line = _COLORS[level] + line + _RESET
+        # one write a line: the ranks under torchrun share an unbuffered
+        # stdout, where print's separate newline lets another rank's line in
         with _lock:
-            print(line, flush=True)
+            sys.stdout.write(line + "\n")
+            sys.stdout.flush()
 
     def trace(self, msg: str) -> None:
         self._log(TRACE, msg)

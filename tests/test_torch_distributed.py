@@ -45,7 +45,11 @@ def launch_ranks(argv: list[str], world: int, env: dict | None = None,
         for p in procs:
             outs.append(p.communicate(timeout=timeout)[0].decode())
     except subprocess.TimeoutExpired:
-        pytest.fail(f"{world} ranks of {argv[:2]} timed out after {timeout} s")
+        for p in procs:
+            p.kill()
+        tails = [p.communicate()[0].decode()[-2000:] for p in procs]
+        pytest.fail(f"{world} ranks of {argv[:2]} timed out after {timeout} s; their output:\n"
+                    + "\n".join(f"--- rank {r}:\n{t}" for r, t in enumerate(tails)))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -127,6 +131,83 @@ def test_single_process_degenerates(monkeypatch):
     assert block(15, 3, 4) == (12, 16)
 
 
+@pytest.mark.parametrize("cards,local,backend", [(4, 4, "nccl"), (1, 1, "nccl"),
+                                                   (1, 4, "gloo"), (2, 4, "gloo"),
+                                                   (0, 1, "gloo")])
+def test_choose_backend(monkeypatch, cards, local, backend):
+    """nccl only when every local rank has a card of its own."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert D.choose_backend(local) == backend
+
+
+@pytest.mark.parametrize("local_rank,backend", [(2, "nccl"), (2, "gloo")])
+def test_initialize_binds_the_rank_card_under_nccl(monkeypatch, capsys, local_rank, backend):
+    """Rank 2 of 4 on a host of four cards takes cuda:2, binds it to the
+    group under nccl (device_id) and logs the card's index, UUID and PCI bus; a
+    gloo group gets no device_id. The card and the group are stand-ins."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+    from sfm_mvs_pipeline_tpu_torch.utils import logger
+
+    calls = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.setdefault("set", d))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(uuid=f"uuid-of-{d.index}",
+                                                        pci_bus_id=24 + d.index))
+    monkeypatch.setattr(logger, "_global_level", logger.INFO)
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda b, **kw: calls.update(backend=b, **kw))
+    for k, v in dict(RANK=str(local_rank), WORLD_SIZE="4", LOCAL_RANK=str(local_rank),
+                     LOCAL_WORLD_SIZE="4").items():
+        monkeypatch.setenv(k, v)
+    try:
+        assert D.initialize_distributed(backend=None if backend == "nccl" else backend)
+    finally:
+        logger.set_rank(0, 1)
+    card = torch.device("cuda", local_rank)
+    assert calls["set"] == card and calls["backend"] == backend
+    assert calls.get("device_id") == (card if backend == "nccl" else None)
+    out = capsys.readouterr().out
+    assert f"backend {backend} (4 local rank(s) on 4 card(s); this rank's card: 2 " \
+           f"GPU-uuid-of-2, PCI bus 26)" in out, out
+
+
+def test_log_record_is_one_write(monkeypatch):
+    """Each log record, newline included, reaches stdout in one write:
+    torchrun's ranks share an unbuffered stdout, where a separate newline
+    write lets another rank's record into the middle of the line."""
+    import io
+
+    from sfm_mvs_pipeline_tpu_torch.utils import logger
+
+    class Writes(io.StringIO):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def write(self, text):
+            self.calls.append(text)
+            return super().write(text)
+
+    out = Writes()
+    monkeypatch.setattr(logger, "_global_level", logger.INFO)
+    monkeypatch.setattr(sys, "stdout", out)
+    logger.AppLogger("Test").info("one record")
+    assert len(out.calls) == 1 and out.calls[0].endswith("Test] one record\n"), out.calls
+
+
 def test_digest_tells_arrays_apart():
     import torch
 
@@ -152,6 +233,17 @@ def test_dryrun_multichip_world_2():
                         2)
     for rank, out in enumerate(outs):
         assert f"dryrun rank {rank} of 2: OK" in out
+
+
+def stage_names(log: str, world: int) -> list[set[str]]:
+    """Each rank's stage names from its --stage-times line."""
+    names = []
+    for r in range(world):
+        line = next(ln for ln in log.splitlines()
+                    if f"PhotogrammetrieCli r{r}/{world}] stage times: " in ln)
+        names.append({part.rsplit(" ", 3)[0]
+                      for part in line.split("stage times: ", 1)[1].split("; ")})
+    return names
 
 
 @pytest.fixture(scope="module")
@@ -185,6 +277,10 @@ def test_cli_world2_rank0_writes(insel_world2):
     assert "collective all_gather" in log
     assert "PhotogrammetrieCli r0/2] reprojection error" in log
     assert "PhotogrammetrieCli r1/2] reprojection error" not in log
+    # rank 1 stops after the depth-map gather: no fusion of its own
+    stages = stage_names(log, 2)
+    assert "depth-map gather" in stages[1] and "fusion" in stages[0]
+    assert not {"fusion", "mesh", "texture"} & stages[1], stages[1]
     names = sorted(os.listdir(out))
     for name in ("pointcloud_sparse.ply", "cameras_recovered.ply", "scene.npz", "app.stat.csv",
                  "reprojectionerror.stat.csv", "pointcloud_dense.ply", "depth_0000.npy",
@@ -237,3 +333,43 @@ def test_cli_world2_resumes_inside_its_own_out(insel_world2, tmp_path):
     np.testing.assert_array_equal(a.poses, b.poses)
     assert sorted(os.listdir(out)) == ["cameras_recovered.ply", "pointcloud_sparse.ply",
                                        "scene.npz", "scene.npz.json"]
+
+
+def test_cli_world4_insel(tmp_path):
+    """The CLI on insel at world 4 (gloo, one thread a rank): 3 pairs and 3
+    views for 4 ranks, so matching runs unsharded (fewer pairs than ranks)
+    and rank 3 computes no view. 3/3 views; rank 0 alone wrote and alone
+    fused and meshed (ranks
+    1-3 stop after the depth-map gather); the depth maps are bit-equal to a
+    world-1 run resumed from the run's scene.npz, and so are the dense
+    cloud and the mesh."""
+    from sfm_mvs_pipeline_tpu_torch.cli.app import main
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+
+    out4 = tmp_path / "w4"
+    flags = ["-Prun=photogrammetrie", "-Pdevice=cpu", "--dense", "--sgm", "--mesh",
+             "--artifacts"]
+    outs = launch_ranks(["-m", "sfm_mvs_pipeline_tpu_torch", *flags, f"-Pimage={INSEL}",
+                         f"-Pout={out4}", "--stats", "--stage-times"], 4, timeout=300)
+    log = "".join(outs)
+    assert int(load_scene(str(out4 / "scene.npz")).recovered.sum()) == 3
+    stages = stage_names(log, 4)
+    for r in range(4):
+        assert f"SfM r{r}/4] pair-sharded matching" not in log
+        assert f"MVS r{r}/4] view-sharded depth maps over 4 ranks" in log
+        assert "depth-map gather" in stages[r]
+        assert (f"PhotogrammetrieCli r{r}/4] reprojection error" in log) == (r == 0)
+        assert (f"MVS r{r}/4] fused dense cloud" in log) == (r == 0)
+        if r:
+            assert not {"fusion", "mesh", "texture"} & stages[r], stages[r]
+    assert {"fusion", "mesh"} <= stages[0]
+
+    out1 = tmp_path / "w1"
+    assert main([*flags, f"-Presume={out4 / 'scene.npz'}", f"-Pout={out1}",
+                 "-Ploglevel=4"]) == 0
+    for i in range(3):
+        d1 = np.load(out1 / f"depth_{i:04d}.npy")
+        assert (d1 > 0).mean() > 0.5
+        np.testing.assert_array_equal(np.load(out4 / f"depth_{i:04d}.npy"), d1)
+    for name in ("pointcloud_dense.ply", "mesh_dense.ply"):
+        assert (out4 / name).read_bytes() == (out1 / name).read_bytes(), name

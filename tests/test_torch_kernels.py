@@ -27,7 +27,8 @@ every multiply, add, divide and square root on its own, in the plain
 version's order, so it equals the plain version on the card bit for bit;
 the plain version on the CPU differs from both by one ulp at a few
 entries (6e-8 measured on an H100 host), so that comparison is held to
-atol 1e-6.
+atol 1e-6. One case runs every kernel on tensors of cuda:1 while cuda:0 is
+current (it needs two cards).
 """
 
 import numpy as np
@@ -479,3 +480,76 @@ def test_k3_rejects_bad_operands():
         K3.pm_score_rect(c, m, m, ok, m.cpu(), m, maxd=16)
     with pytest.raises(ValueError):
         K3.pm_score_rect(c, m, m, ok, m, m, maxd=16, parity=2)
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_their_inputs_card():
+    """Every kernel on tensors of cuda:1 while cuda:0 is the current card:
+    each wrapper launches under its inputs' card and that card's stream,
+    and the outputs, read after synchronising cuda:1 alone, equal the plain
+    versions on the same tensors (K1 fp32 and bf16 and K2a, K2b, K3 bit for
+    bit; K1x under K1's extent contract, bit-equal at valid queries on
+    integers)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA cards, found {torch.cuda.device_count()}")
+    from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
+    from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import window_stats
+    from sfm_mvs_pipeline_tpu_torch.mvs.sgm import (
+        sgm_bidir_plain,
+        sgm_dir_acc_plain,
+        sgm_hpair_plain,
+        staged_sum,
+    )
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import two_nn_batch, two_nn_exact
+
+    card = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(11)
+    S, F, D = 3, 300, 128
+    d = rng.integers(0, 256, size=(S, F, D)).astype(np.float32)
+    for s in range(S):  # duplicated rows: exact ties
+        d[s, rng.integers(0, F, F // 8)] = d[s, rng.integers(0, F, F // 8)]
+    v = rng.random((S, F)) > 0.1
+    v[:, -1] = True
+    pairs = np.array([(a, b) for a in range(S) for b in range(S) if a != b], np.int32)
+    dt, vt, pt = (torch.from_numpy(x).to(card) for x in (d, v, pairs))
+    pm1 = torch.from_numpy(_pm1_with_ties(rng, S, F, 256)).to(card)
+    cost = _sgm_inputs(40, 33, 96, 5, device=card)
+    C, H, W, r, maxd = 4, 37, 200, 3, 120
+    ref = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(card)
+    nbr = torch.from_numpy(rng.random((H, W), dtype=np.float32)).to(card)
+    in_n = torch.from_numpy(rng.random((H, W)) > 0.05).to(card)
+    cands = torch.from_numpy((rng.random((C, H, W)) * maxd).astype(np.float32)).to(card)
+    r_mean, r_var = (x.contiguous() for x in window_stats(ref, r))
+    torch.cuda.synchronize(card)
+
+    before = {k: k.launches for k in (K.two_nn_batch_fused, K.two_nn_exact_batch,
+                                      K2.sgm_bidir, K2.sgm_hpair, K2.sgm_dir_acc,
+                                      K3.pm_score_rect)}
+    out = {
+        "k1": K.two_nn_batch_fused(dt, vt, pt),
+        "k1_bf16": K.two_nn_batch_fused(pm1.to(torch.bfloat16), vt, pt),
+        "k1x": K.two_nn_exact_batch(dt, vt, pt),
+        "k2a": [K2.sgm_bidir(cost, 0.03, 0.3, axis=a) for a in (0, 1)],
+        "k2b": K2.sgm_staged_hwd(cost, 0.03, 0.3),
+        "k3": [K3.pm_score_rect(cands, ref, nbr, in_n, r_mean, r_var, maxd=maxd,
+                                window_radius=r, parity=p) for p in (None, 0)],
+    }
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(card)
+    calls = {"two_nn_batch_fused": 2, "sgm_bidir": 2, "sgm_dir_acc": 2, "pm_score_rect": 2}
+    assert all(k.launches == n + calls.get(k.__name__, 1) for k, n in before.items())
+    plain = two_nn_batch(dt, vt, pt)
+    assert all(a.device == card and torch.equal(a, b) for a, b in zip(out["k1"], plain))
+    assert all(torch.equal(a, b) for a, b in zip(out["k1_bf16"], two_nn_batch(pm1, vt, pt)))
+    _assert_extent_contract(out["k1x"], two_nn_batch(dt, vt, pt, nn=two_nn_exact), vt, pt)
+    for a, o in zip((0, 1), out["k2a"]):
+        assert torch.equal(o, sgm_bidir_plain(cost, 0.03, 0.3, a))
+    assert torch.equal(out["k2b"], staged_sum(cost, 0.03, 0.3, sgm_hpair_plain,
+                                              sgm_dir_acc_plain))
+    for p, o in zip((None, 0), out["k3"]):
+        assert torch.equal(o, pm_score_rect_plain(cands, ref, nbr, in_n, r_mean, r_var, maxd,
+                                                  r, parity=p))
