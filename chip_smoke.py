@@ -128,12 +128,40 @@ the CPU. Phases, each timed and each fatal on failure:
      identical to, a world-1 run in this process on card 0 resumed from
      the same scene.npz. Runs by default only on a machine with four
      cards; on fewer, one line says so and `--phases 16` fails.
-Phases 7, 10, 13, 14, 15 and 16 share one render in a temporary work dir.
+ 17. the mesh of one process (parallel/mesh.py): the CLI with -Pdevice=
+     a list of devices, no torchrun. 17a (fewer than four cards, so in the
+     default run on one card): two shards on card 0
+     (-Pdevice=cuda:0,cuda:0), after an untimed warm-up of the mesh (the
+     dryrun and insel's SfM over it): the 1080p render with phase 7's flags (K1
+     pair-sharded, K2b view-sharded; BA on card 0, as a one-process mesh
+     never shards it), then PatchMatch resumed
+     from its scene.npz (K3), each with phase 7's and 10's limits, its
+     depth maps bit-equal to, and its pointcloud_dense.ply and
+     mesh_dense.ply identical to, its world-1 twin on card 0 (the same
+     flags from the same input, or resumed from the mesh run's scene.npz
+     where the scenes differ; where phase 7 ran in the same
+     call, its wall stands for the --sgm twin's and only the resumed
+     reference runs); then on that scene the
+     sharded matcher (fast and exact) bit-equal to match_pairs_batch and
+     sharded BA (float64) within rel 1e-9 of run_bundle_adjustment, two
+     runs bit-identical. 17b (four cards; `--phases 17` on a four-card
+     machine): the same over the four cards (-Pdevice=cuda), then a
+     resumed --sgm run under -Pprofile= (each card's kernels on one time
+     axis), exact (K1x), ORB at -Pfeature-limit=8192 (K1's bf16 route;
+     scene.npz stays small) and insel --sgm (K2a; 3 views for 4 cards,
+     card 3 computes none), each wall beside phase 16's torchrun wall and
+     its world-1 twin's. A mesh run's stage split is each stage's longest
+     shard thread (utils/stage_timer.py). Every count is zeroed just before a run and read
+     just after; each card's launches of each kernel are printed, and each
+     kernel of a run must have launched on every card with work.
+Phases 7, 10, 13, 14, 15, 16 and 17 share one render in a temporary work
+dir. Every in-process run that names no devices takes card 0 alone
+(-Pdevice=cuda:0): the CLI's default, every visible card, would shard.
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. A run of some
 phases only prints no result line; it exits 0 when they pass.
 
-Usage: python3 chip_smoke.py [--phases 1,2,...,16]
+Usage: python3 chip_smoke.py [--phases 1,2,...,17]
        python3 chip_smoke.py --k1x-timing ROOT [--k1x-inputs NPZ]
 The second form only times K1x of the checkout at ROOT (k1x_timing), so two
 checkouts compare in one call: parent, change, change, parent.
@@ -168,11 +196,14 @@ K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
 K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
 K1X_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_exact_kernel.cu"
 K1X_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:88"
-ALL_PHASES = set(range(1, 16))  # the one-card phases; a full run holds them all
+ALL_PHASES = set(range(1, 16)) | {17}  # a full run holds them all
 FOUR_CARD_PHASE = 16  # in the default run only on a machine with four cards
+MESH_PHASE = 17  # 17a on a machine with fewer than four cards, else 17b
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"fp32": 67e12, "bf16": 989e12}
+ONE_CARD = "cuda:0"  # the device of every run that does not name its own
+SIFT_ATE_LIMIT = 0.001  # phase 4's, on the 1080p render (PERF.md §2)
 DENSE_PARTS = ["load + undistort", "rect sweep", "sweep", "patchmatch", "sgm", "consensus",
                "fusion", "mesh", "refine", "texture"]
 
@@ -196,17 +227,21 @@ def say(card: str, msg: str) -> None:
 
 def run_cli(argv: list[str], log_name: str) -> tuple[int, str, float]:
     """Run the port's CLI in-process; returns (rc, log text, wall s). The
-    wall ends with a device synchronise."""
+    wall ends with a synchronise of every card. The run takes card 0 alone
+    (-Pdevice=cuda:0) unless argv names its devices: on a machine of
+    several cards the CLI's default mesh would shard over all of them."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.cli.app import main
 
+    if not any(a.startswith("-Pdevice=") for a in argv):
+        argv = [*argv, f"-Pdevice={ONE_CARD}"]
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = main(argv)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
     wall = time.perf_counter() - t0
     text = buf.getvalue()
     os.makedirs(LOG_DIR, exist_ok=True)
@@ -902,6 +937,22 @@ def render_once(card: str, work: str, n_views: int, h: int, w: int, f: float):
     return data, gt["R"], gt["C"]
 
 
+def dense_counts(log: str) -> str:
+    """The dense stage's counts from a CLI log: valid pixels of each view's
+    depth map, fused points, and mesh faces after each step of
+    mvs/mesh.py::mesh_from_depth_maps (back-projection, cluster_vertices,
+    remove_small_components, close_holes, smoothing)."""
+    # in view order: a mesh's shard threads log their views interleaved
+    valid = [n for _, n in sorted((int(v), int(n)) for v, n in re.findall(
+        r"\] view (\d+): depth range .*?, (\d+)/\d+ valid px", log))]
+    fused = re.findall(r"fused dense cloud: (\d+) points", log)
+    steps = ["raw mesh", "clustered", "small components removed", "holes closed", "cleaned"]
+    faces = {k: re.findall(re.escape(k) + r": \d+ verts, (\d+) faces", log) for k in steps}
+    return (f"valid px per view {valid} (sum {sum(valid)}); fused points "
+            f"{fused[-1] if fused else 'none'}; faces " + ", ".join(
+                f"{k} {v[-1] if v else 'none'}" for k, v in faces.items()))
+
+
 def run_dense_cli(card: str, argv: list[str], log_name: str, counters, n_views: int,
                   gt_R, gt_C, out: str, limit: float, label: str) -> list[int]:
     """One dense CLI run of the render under the stage timers, checked:
@@ -936,6 +987,7 @@ def run_dense_cli(card: str, argv: list[str], log_name: str, counters, n_views: 
               + "; ".join(f"{k} {split[k][0]:.3f} s x{split[k][1]}"
                           for k in DENSE_PARTS if k in split)
               + f"; other {rest:.3f} s")
+    say(card, f"{label} counts: " + dense_counts(log))
     if n_rec != n_views:
         raise AssertionError(f"{label} recovered {n_rec}/{n_views} views")
     if n_pts <= 0 or n_faces <= 0:
@@ -1330,7 +1382,7 @@ def phase_orb_real_size(card: str, work: str, n_views=12, h=1080, w=1920, f=1680
                              scene.descriptors, scene.feat_valid,
                              make_intrinsics(w, h).numpy().astype(np.float64))
         st = reconstruct(sweep, make_pairs("unordered", n_views),
-                         SfMConfig(seed=seed, binary_descriptors=True))
+                         SfMConfig(seed=seed, binary_descriptors=True), device=ONE_CARD)
         n_rec = int(sweep.recovered.sum())
         _, rel_ate, rot = trajectory_error(sweep, gt_R, gt_C) if n_rec >= 3 else (0, 1.0, 180.0)
         med = float(np.median(reprojection_errors(sweep))) if n_rec >= 2 else float("nan")
@@ -1948,6 +2000,11 @@ def files_equal(out_a: str, out_b: str, names: list[str], label: str) -> None:
                 raise AssertionError(f"{label}: {name} differs from the world-1 run's")
 
 
+# phase 16's torchrun walls by run (I-2, ...), which phase 17b prints its
+# one-process walls beside
+TORCHRUN_WALLS: dict[str, float] = {}
+
+
 def world4_run(card: str, label: str, argv: list[str], log_name: str, timeout: float,
                kernels: list[str], idle_ranks: tuple = ()) -> tuple[str, list[dict]]:
     """One CLI run at world 4 under torchrun, checked: nccl by rule on four
@@ -1956,6 +2013,7 @@ def world4_run(card: str, label: str, argv: list[str], log_name: str, timeout: f
     each rank's stage split, collectives and launches. Returns (log,
     per-rank reports)."""
     log, wall = torchrun_cli(argv, WORLD4, log_name, timeout)
+    TORCHRUN_WALLS[label.split()[0]] = wall
     cards = nccl_cards(log, WORLD4, label)
     reports = rank_report(log, WORLD4)
     world1 = ", ".join(f"{k} {v:.2f} s" for k, v in WORLD1_WALLS.items()) or "world-1 phases not run"
@@ -2208,10 +2266,378 @@ def world4_ba(card: str, scene_npz: str) -> dict:
 
 
 
+# ------------------------------------------------------------- phase 17
+# the mesh of one process: 17a two shards on card 0, 17b the four cards
+
+
+def kernel_wrappers() -> tuple:
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import sgm_kernel as K2
+
+    return (K.two_nn_batch_fused, K.two_nn_exact_batch, K2.sgm_bidir, K2.sgm_hpair,
+            K2.sgm_dir_acc, K3.pm_score_rect)
+
+
+def per_card(by_card: dict) -> str:
+    return ", ".join(f"{k} " + "/".join(f"c{c}:{n}" for c, n in v.items())
+                     for k, v in by_card.items() if v)
+
+
+def walls_beside(label: str, wall: float, torchrun: str | None, world1: float | None) -> str:
+    tr = TORCHRUN_WALLS.get(torchrun) if torchrun else None
+    return (f"{label}: one-process wall {wall:.2f} s; torchrun world 4 ({torchrun}) "
+            + (f"{tr:.2f} s" if tr is not None else "not run in this call")
+            + "; world 1 " + (f"{world1:.2f} s" if world1 is not None else "not run"))
+
+
+def mesh_run(card: str, label: str, argv: list[str], log_name: str, devices: str,
+             kernels: list[str], idle_cards: tuple = ()) -> tuple[str, float, dict, dict]:
+    """One CLI run in this process over the mesh -Pdevice=`devices`, under
+    the stage timers, every kernel's counts zeroed just before and read just
+    after. Each kernel in `kernels` must have launched on every card of the
+    mesh but `idle_cards` (cards with no work), and on none of those.
+    Returns (log, wall s, stage split, {kernel: {card: launches}})."""
+    from sfm_mvs_pipeline_tpu_torch import resolve_devices
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build
+    from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+
+    wrappers = kernel_wrappers()
+    build.reset_launches(*wrappers)
+    stage_timer.enable()
+    try:
+        rc, log, wall = run_cli([*argv, f"-Pdevice={devices}"], log_name)
+        split = stage_timer.report()
+    finally:
+        stage_timer.enable(False)
+    if rc != 0:
+        raise AssertionError(f"{label}: the CLI exited {rc}")
+    by_card = {k.__name__: dict(sorted(k.by_card.items())) for k in wrappers}
+    say(card, f"{label}: stages " + "; ".join(f"{k} {t:.3f} s x{n}" for k, (t, n) in split.items()))
+    say(card, f"{label}: kernel launches per card " + per_card(by_card))
+    cards = sorted({d.index for d in resolve_devices(devices) if d.type == "cuda"})
+    for name in kernels:
+        for c in cards:
+            n = by_card[name].get(c, 0)
+            if (n > 0) == (c in idle_cards):
+                raise AssertionError(f"{label}: {name} launched {n} times on card {c} (cards "
+                                     f"without work: {idle_cards})")
+    return log, wall, split, by_card
+
+
+def scenes_equal(out_a: str, out_b: str) -> bool:
+    a = np.load(os.path.join(out_a, "scene.npz"))
+    b = np.load(os.path.join(out_b, "scene.npz"))
+    return set(a.files) == set(b.files) and all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
+def world1_twin(card: str, label: str, argv: list[str], mesh_out: str, twin_out: str,
+                flags: list[str], n_views: int, log_name: str) -> float:
+    """The mesh run's world-1 twin on one card: `argv` with -Pout=twin_out
+    (from the same images, or resumed from the same scene.npz). Where its
+    scene differs from the mesh run's (a sharded BA sums in another order),
+    a world-1 run resumed from the mesh run's scene.npz with `flags` is the
+    reference. Holds the depth maps bit-equal and pointcloud_dense.ply and
+    mesh_dense.ply identical to the reference; returns the twin's wall."""
+    rc, _, wall = run_cli([*argv, f"-Pout={twin_out}"], log_name)
+    if rc != 0:
+        raise AssertionError(f"{label} world-1 twin exited {rc}")
+    if scenes_equal(mesh_out, twin_out):
+        dense_equal(card, label, mesh_out, twin_out, n_views, "its world-1 twin from the same "
+                    "input")
+    else:
+        resumed_reference(card, label, mesh_out, flags, n_views,
+                          log_name.replace(".log", "_resumed.log"))
+    return wall
+
+
+def resumed_reference(card: str, label: str, mesh_out: str, flags: list[str], n_views: int,
+                      log_name: str) -> None:
+    """A world-1 run resumed from the mesh run's scene.npz with `flags`,
+    its depth maps and dense files held to the mesh run's."""
+    ref = mesh_out + "-w1-resumed"
+    rc, _, _ = run_cli(["-Prun=photogrammetrie", f"-Presume={mesh_out}/scene.npz",
+                        f"-Pout={ref}", *flags], log_name)
+    if rc != 0:
+        raise AssertionError(f"{label} world-1 reference exited {rc}")
+    dense_equal(card, label, mesh_out, ref, n_views, "a world-1 run resumed from its scene.npz")
+
+
+def dense_equal(card: str, label: str, out: str, ref: str, n_views: int, what: str) -> None:
+    depth_maps_equal(out, ref, n_views, label)
+    files_equal(out, ref, ["pointcloud_dense.ply", "mesh_dense.ply"], label)
+    say(card, f"{label}: {n_views} depth maps bit-equal, pointcloud_dense.ply and mesh_dense.ply "
+              f"identical to {what} on {ONE_CARD}")
+
+
+def mesh_functions(card: str, label: str, scene_npz: str, devices: str) -> dict:
+    """The sharded matcher (fast and exact) and BA (float64) over the mesh
+    `devices` on a run's scene, against the one-device functions on the
+    same inputs: the matcher bit-equal, BA within rel 1e-9 of the cost with
+    the same iterations, and two BA runs bit-identical. Returns each
+    kernel's launches per card in the sharded matcher."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch.models.cameras import CAMERA_MODELS
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import build
+    from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
+    from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch
+    from sfm_mvs_pipeline_tpu_torch.ops.pairs import unordered_pairs
+    from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
+    from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
+    from sfm_mvs_pipeline_tpu_torch.sfm.ba import run_bundle_adjustment
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
+
+    scene = load_scene(scene_npz)
+    dev = torch.device(ONE_CARD)
+    desc = torch.as_tensor(scene.descriptors, device=dev)
+    valid = torch.as_tensor(scene.feat_valid, device=dev)
+    pairs = torch.as_tensor(unordered_pairs(scene.n_shots), device=dev)
+    launches = {}
+    for exact, kern in ((False, K.two_nn_batch_fused), (True, K.two_nn_exact_batch)):
+        build.reset_launches(kern)
+        got = match_pairs_sharded(desc, valid, pairs, with_distance=True, exact=exact,
+                                  device=devices)
+        launches[kern.__name__] = dict(sorted(kern.by_card.items()))
+        ref = match_pairs_batch(desc, valid, pairs, with_distance=True, exact=exact)
+        if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, ref)):
+            raise AssertionError(f"{label}: the sharded matcher (exact={exact}) differs from "
+                                 "match_pairs_batch")
+    imask = np.zeros((len(scene.intrinsics), 7))
+    imask[:, list(CAMERA_MODELS[scene.camera_model].opt_mask)] = 1.0
+    # the run's points moved off their optimum, so the LM takes real steps
+    points = scene.points + np.random.default_rng(0).normal(size=scene.points.shape) * 1e-3
+    args = (points, scene.poses, scene.intrinsics, scene.cam_of_shot, scene.obs_point,
+            scene.obs_shot, scene.obs_uv.astype(np.float64), scene.obs_w.astype(np.float64),
+            imask)
+    kw = dict(pose_free=scene.recovered.astype(np.float64), dtype=torch.float64)
+    ref = run_bundle_adjustment(*args, device=dev, **kw)
+    t0 = time.perf_counter()
+    runs = [run_bundle_adjustment_sharded(*args, device=devices, **kw) for _ in range(2)]
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    keys = ("points", "poses", "intrinsics")
+    same = all(np.array_equal(runs[0][k], runs[1][k]) for k in keys)
+    rel = abs(runs[0]["cost"] - ref["cost"]) / ref["cost"]
+    max_abs = {k: float(np.abs(runs[0][k] - ref[k]).max()) for k in keys}
+    say(card, f"{label}: sharded matcher (fast, exact) bit-equal to match_pairs_batch over "
+              f"{devices}, launches per card {per_card(launches)}; sharded BA (float64, "
+              f"{int((scene.obs_w > 0).sum())} observations) cost {runs[0]['cost']!r} vs one "
+              f"device {ref['cost']!r} (rel {rel:.3e}, limit 1e-9), {runs[0]['iterations']} "
+              f"iterations vs {ref['iterations']}, max |d| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in max_abs.items())
+              + f", two runs bit-identical: {same}, {ms:.1f} ms a run")
+    if not (rel <= 1e-9 and runs[0]["iterations"] == ref["iterations"] and same
+            and runs[0]["cost"] == runs[1]["cost"]):
+        raise AssertionError(f"{label}: sharded BA outside rel 1e-9 or not repeatable")
+    return launches
+
+
+def card_busy(trace_path: str) -> dict:
+    """Each card's kernels in a torch.profiler Chrome trace on one time
+    axis: {"cards": {card: (first start s, last end s, busy s)} from the
+    first kernel of the trace, "overlap_s": the time two or more cards
+    were busy at once}."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans: dict[int, list] = {}
+    for ev in events:
+        if ev.get("cat") == "kernel" and "dur" in ev:
+            spans.setdefault(int(ev["args"]["device"]), []).append(
+                (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+    if not spans:
+        raise AssertionError(f"no kernel events in {trace_path}")
+    t0 = min(a for sp in spans.values() for a, _ in sp)
+    cards, edges = {}, []
+    for c, sp in sorted(spans.items()):
+        sp.sort()
+        merged = [list(sp[0])]
+        for a, b in sp[1:]:
+            if a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        cards[c] = ((merged[0][0] - t0) / 1e6, (merged[-1][1] - t0) / 1e6,
+                    sum(b - a for a, b in merged) / 1e6)
+        edges += [(a, 1) for a, _ in merged] + [(b, -1) for _, b in merged]
+    busy, last, overlap = 0, None, 0.0
+    for t, d in sorted(edges):
+        if busy >= 2:
+            overlap += t - last
+        busy, last = busy + d, t
+    return {"cards": cards, "overlap_s": overlap / 1e6}
+
+
+def warm_mesh(card: str, work: str, label: str, devices: str) -> None:
+    """Untimed, before a phase's first timed run: every sharded path once
+    on every card of the mesh (parallel/dryrun.py) and insel's sparse SfM
+    over it, so no timed run pays a card's first context, library load or
+    first call of an op (a cold mesh run against its warm world-1 twin
+    measures the cold start, not the mesh)."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(devices)
+    dryrun_multichip(len(mesh), devices=mesh)
+    insel = os.path.join(ROOT, "sample_data", "insel")
+    rc, _, _ = run_cli(["-Prun=photogrammetrie", f"-Pimage={insel}",
+                        f"-Pout={os.path.join(work, f'out-{label}-warm')}", f"-Pdevice={devices}"],
+                       f"chip_smoke_{label}_warm.log")
+    if rc != 0:
+        raise AssertionError(f"{label} warm-up exited {rc}")
+    say(card, f"{label}: the mesh warmed (dryrun and insel's sparse SfM over {devices}) in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_mesh_one_card(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
+    """17a: the mesh of two shards on one card (-Pdevice=cuda:0,cuda:0):
+    the render with phase 7's flags, then PatchMatch resumed from its
+    scene.npz, each held to its world-1 twin (world1_twin); then the
+    sharded matcher and BA on that scene (mesh_functions). Returns each
+    kernel's launches on the mesh paths."""
+    return mesh_paths(card, work, "17a", f"{ONE_CARD},{ONE_CARD}", 2, n_views, h, w, f)
+
+
+def mesh_paths(card: str, work: str, label: str, devices: str, n_shards: int, n_views: int,
+               h: int, w: int, f: float) -> dict:
+    """The render through the CLI over the mesh `devices` of n_shards
+    shards: --sgm from the images (K1 pair-sharded, K2b view-sharded),
+    then PatchMatch resumed (K3), each checked against phase 7's and 10's
+    limits and held to its world-1 twin; then mesh_functions on its scene.
+    Returns each kernel's launches per card."""
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    warm_mesh(card, work, label, devices)
+    dense = ["--dense", "--sgm", "--mesh", "--colored", "--artifacts"]
+    out = os.path.join(work, f"out-{label}-sgm")
+    argv = ["-Prun=photogrammetrie", f"-Pimage={data}", "-Pfeature-limit=0", *dense]
+    log, wall, split, n = mesh_run(card, f"{label} --sgm", [*argv, f"-Pout={out}"],
+                                   f"chip_smoke_{label}_sgm.log", devices,
+                                   ["two_nn_batch_fused", "sgm_hpair", "sgm_dir_acc"])
+    scene, med = check_outputs(out)
+    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
+    share, n_pts = dense_accuracy(out, gt_R, gt_C)
+    n_ba = len(re.findall(r"BA #\d+", log))
+    n_sharded = log.count(f"point-sharded over {n_shards} devices")
+    say(card, f"{label} --sgm: {len(rec)}/{n_views} views, ATE {rel_ate:.5%}, max rel rot "
+              f"{rot:.4f} deg, median reprojection {med:.4f} px, {n_pts} dense points, "
+              f"{share:.4%} within 1% of depth (limit {DENSE_SHARE_LIMIT:.0%}); {n_sharded} of "
+              f"{n_ba} BA runs point-sharded; counts: {dense_counts(log)}")
+    if len(rec) != n_views or not (rel_ate <= SIFT_ATE_LIMIT and rot <= 0.25 and med < 1.0):
+        raise AssertionError(f"{label} --sgm: {len(rec)} views, ATE {rel_ate}, rot {rot}, {med}")
+    if not share >= DENSE_SHARE_LIMIT:
+        raise AssertionError(f"{label} --sgm: {share:.4%} of {n_pts} points on the surfaces")
+    for what in (f"pair-sharded matching over {n_shards} devices",
+                 f"view-sharded depth maps over {n_shards} devices",
+                 *(f"c{i}/{n_shards} " for i in range(n_shards))):
+        if what not in log:
+            raise AssertionError(f"{label} --sgm: {what!r} not logged")
+    if "dense real-size" in WORLD1_WALLS:  # phase 7 ran these flags from the images
+        w1 = WORLD1_WALLS["dense real-size"]
+        resumed_reference(card, f"{label} --sgm", out, dense, n_views,
+                          f"chip_smoke_{label}_sgm_w1.log")
+    else:
+        w1 = world1_twin(card, f"{label} --sgm", argv, out, out + "-w1", dense, n_views,
+                         f"chip_smoke_{label}_sgm_w1.log")
+    say(card, walls_beside(f"{label} --sgm", wall, "I-2", w1))
+    launches = {"k1": n["two_nn_batch_fused"],
+                "k2b": {c: n["sgm_hpair"].get(c, 0) + n["sgm_dir_acc"].get(c, 0)
+                        for c in n["sgm_hpair"]}}
+
+    pm = ["--dense", "-Pdense-method=patchmatch", "--mesh", "--colored", "--artifacts"]
+    out_pm = os.path.join(work, f"out-{label}-pm")
+    argv = ["-Prun=photogrammetrie", f"-Presume={out}/scene.npz", *pm]
+    log, wall, _, n = mesh_run(card, f"{label} PatchMatch", [*argv, f"-Pout={out_pm}"],
+                               f"chip_smoke_{label}_pm.log", devices, ["pm_score_rect"])
+    share, n_pts = dense_accuracy(out_pm, gt_R, gt_C)
+    say(card, f"{label} PatchMatch: {n_pts} dense points, {share:.4%} within 1% of depth (limit "
+              f"{PM_DENSE_SHARE_LIMIT:.0%}); counts: {dense_counts(log)}")
+    if not share >= PM_DENSE_SHARE_LIMIT:
+        raise AssertionError(f"{label} PatchMatch: {share:.4%} of {n_pts} points on the surfaces")
+    w1 = world1_twin(card, f"{label} PatchMatch", argv, out_pm, out_pm + "-w1", pm, n_views,
+                     f"chip_smoke_{label}_pm_w1.log")
+    say(card, walls_beside(f"{label} PatchMatch", wall, "I-3", w1))
+    launches["k3"] = n["pm_score_rect"]
+    fn = mesh_functions(card, f"{label} functions", os.path.join(out, "scene.npz"), devices)
+    launches["k1_function"] = fn["two_nn_batch_fused"]
+    launches["k1x"] = fn["two_nn_exact_batch"]
+    return launches
+
+
+def phase_mesh_four_cards(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0,
+                          devices: str = "cuda") -> dict:
+    """17b: one process over the four cards (-Pdevice=cuda), phase 16's
+    paths without torchrun: mesh_paths (the render --sgm, PatchMatch
+    resumed, the sharded functions), a resumed --sgm run under
+    -Pprofile= for each card's busy span on one time axis, exact (K1x),
+    ORB at -Pfeature-limit=8192 (K1's bf16 route) and insel --sgm (K2a;
+    3 views for 4 cards, card 3 idle). Each run's wall beside phase 16's
+    torchrun wall and its world-1 twin's. Returns each kernel's launches
+    per card."""
+    import torch
+
+    if devices == "cuda" and torch.cuda.device_count() < WORLD4:
+        raise AssertionError(f"17b needs four cards; this machine has "
+                             f"{torch.cuda.device_count()}")
+    launches = mesh_paths(card, work, "17b", devices, WORLD4, n_views, h, w, f)
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+
+    # each card's busy span in the depth maps, from a torch.profiler trace
+    prof = os.path.join(work, "prof-17b")
+    out = os.path.join(work, "out-17b-prof")
+    mesh_run(card, "17b profiled --sgm", ["-Prun=photogrammetrie",
+             f"-Presume={work}/out-17b-sgm/scene.npz", f"-Pout={out}", "--dense", "--sgm",
+             f"-Pprofile={prof}"], "chip_smoke_17b_profile.log", devices,
+             ["sgm_hpair", "sgm_dir_acc"])
+    busy = card_busy(os.path.join(prof, "trace.json"))
+    say(card, "17b profiled --sgm (depth maps and fusion, no mesh): kernels per card on one "
+              "time axis " + "; ".join(f"card {c} {a:.3f}-{b:.3f} s busy {t:.3f} s"
+                                       for c, (a, b, t) in busy["cards"].items())
+        + f"; two or more cards busy at once {busy['overlap_s']:.3f} s")
+
+    for label, flags, kern, torchrun, limits in (
+            ("17b exact", ["-Pfeature-limit=0", "-Pmatch-precision=exact"],
+             "two_nn_exact_batch", "I-4", (SIFT_ATE_LIMIT, 0.25)),
+            ("17b ORB", ["-Pfeature-detector=ORB", "-Pfeature-limit=8192"],
+             "two_nn_batch_fused", "I-5", (ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG))):
+        tag = label.split()[1].lower()
+        out = os.path.join(work, f"out-17b-{tag}")
+        argv = ["-Prun=photogrammetrie", f"-Pimage={data}", *flags, "--stats"]
+        log, wall, split, n = mesh_run(card, label, [*argv, f"-Pout={out}"],
+                                       f"chip_smoke_17b_{tag}.log", devices, [kern])
+        if label == "17b exact" and any(n["two_nn_batch_fused"].values()):
+            raise AssertionError("17b exact: K1 launched in exact mode")
+        world4_sparse_limits(card, label, out, n_views, gt_R, gt_C, *limits)
+        rc, _, w1 = run_cli([*argv, f"-Pout={out}-w1"], f"chip_smoke_17b_{tag}_w1.log")
+        if rc != 0:
+            raise AssertionError(f"{label} world-1 twin exited {rc}")
+        say(card, walls_beside(label, wall, torchrun, w1)
+            + f"; scene.npz written in the outputs stage's {split['outputs'][0]:.3f} s ("
+            f"{os.path.getsize(os.path.join(out, 'scene.npz')) / 1e6:.1f} MB)")
+        launches[{"17b exact": "k1x", "17b ORB": "k1_orb"}[label]] = n[kern]
+
+    insel = os.path.join(ROOT, "sample_data", "insel")
+    dense = ["--dense", "--sgm", "--mesh", "--colored", "--artifacts"]
+    out = os.path.join(work, "out-17b-insel")
+    argv = ["-Prun=photogrammetrie", f"-Pimage={insel}", *dense]
+    log, wall, _, n = mesh_run(card, "17b insel --sgm", [*argv, f"-Pout={out}"],
+                               "chip_smoke_17b_insel.log", devices, ["sgm_bidir"],
+                               idle_cards=(3,))
+    scene, med = check_outputs(out)
+    if int(scene.recovered.sum()) != 3 or not med < 1.0 or "pair-sharded" in log:
+        raise AssertionError(f"17b insel: {int(scene.recovered.sum())}/3 views, {med} px, or "
+                             "3 pairs for 4 cards matched sharded")
+    w1 = world1_twin(card, "17b insel --sgm", argv, out, out + "-w1", dense, 3,
+                     "chip_smoke_17b_insel_w1.log")
+    say(card, walls_beside("17b insel --sgm", wall, "I-6", w1))
+    launches["k2a"] = n["sgm_bidir"]
+    return launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", help="comma-separated phases (default: 1-15, and 16 on a "
-                    "machine with four cards)")
+    ap.add_argument("--phases", help="comma-separated phases (default: 1-15 and 17, and 16 "
+                    "on a machine with four cards)")
     ap.add_argument("--k1x-timing", metavar="ROOT",
                     help="only time K1x of the checkout at ROOT (see k1x_timing)")
     ap.add_argument("--k1x-inputs", metavar="NPZ", help="phase 14's saved K1x inputs, for "
@@ -2353,6 +2779,21 @@ def run_phases(card: str, phases: set, work: str) -> int:
         k3["launches_world4"] = w4["k3"]
         print(json.dumps({"launches_world4": w4}), flush=True)
         say(card, f"phase {FOUR_CARD_PHASE}: {time.perf_counter() - t0:.2f} s")
+    if MESH_PHASE in phases:
+        t0 = time.perf_counter()
+        four = torch.cuda.device_count() >= WORLD4
+        mesh = phase_mesh_four_cards(card, work) if four else phase_mesh_one_card(card, work)
+        # each kernel's launches a card over the mesh (17a: two shards on card 0)
+        key = "launches_mesh_4cards" if four else "launches_mesh_2shards"
+        entry[key] = {"fp32": mesh["k1"], "bf16_orb": mesh.get("k1_orb")}
+        k1x[key] = mesh["k1x"]
+        k2b[key] = mesh["k2b"]
+        k3[key] = mesh["k3"]
+        if "k2a" in mesh:
+            k2a[key] = mesh["k2a"]
+        print(json.dumps({key: mesh}), flush=True)
+        say(card, f"phase {MESH_PHASE} ({'17b' if four else '17a'}): "
+                  f"{time.perf_counter() - t0:.2f} s")
     if not ALL_PHASES <= phases:
         print(f"partial run (phases {sorted(phases)}): every phase passed; no result line",
               flush=True)

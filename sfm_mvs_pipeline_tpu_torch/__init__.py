@@ -42,7 +42,70 @@ def default_device() -> _torch.device:
     return _torch.device("cuda")
 
 
+def _checked(device: _torch.device | str) -> _torch.device:
+    """`device` as a torch.device; raises for a card that does not exist."""
+    dev = _torch.device(device)
+    if dev.type == "cuda":
+        default_device()
+        if dev.index is not None and dev.index >= _torch.cuda.device_count():
+            raise RuntimeError(f"no card {dev}: this machine has "
+                               f"{_torch.cuda.device_count()}")
+    elif dev.type != "cpu":
+        raise ValueError(f"unknown device {device!r} (expected cuda, cuda:<n> or cpu)")
+    return dev
+
+
 def resolve_device(device: _torch.device | str | None) -> _torch.device:
     """The device an entry point runs on: `device` when given, else the
     card (default_device)."""
-    return _torch.device(device) if device is not None else default_device()
+    return _checked(device) if device is not None else default_device()
+
+
+def resolve_devices(spec=None) -> tuple[_torch.device, ...]:
+    """The devices of the mesh an entry point shards over, the counterpart
+    of the JAX package's jax.devices().
+
+    `spec` is None, "cuda" or torch.device("cuda") (every visible card; in
+    a process group of torchrun's, the rank's own card), "cpu", one named
+    device, or several as a comma-separated string or a sequence:
+    "cuda:0,cuda:1,cuda:2,cuda:3", "cuda:0,cuda:0" (two shards on one
+    card), "cpu,cpu,cpu,cpu". Raises without a card where one is asked
+    for, for a card that does not exist and for a mesh that mixes the CPU
+    and cards. Inside a process group a rank holds one device: its own card
+    (torch.cuda.current_device(), which initialize_distributed set), or the
+    CPU under gloo; anything else raises. Nothing falls back to the CPU or
+    to fewer cards."""
+    import torch.distributed as dist
+
+    in_group = dist.is_available() and dist.is_initialized()
+    if isinstance(spec, _torch.device) and spec.type == "cuda" and spec.index is None:
+        spec = "cuda"
+    if spec is None or (isinstance(spec, str) and spec.strip().lower() == "cuda"):
+        default_device()
+        if in_group:
+            return (_torch.device("cuda", _torch.cuda.current_device()),)
+        return tuple(_torch.device("cuda", i) for i in range(_torch.cuda.device_count()))
+    if isinstance(spec, str):
+        spec = [p.strip() for p in spec.lower().split(",")]
+    elif isinstance(spec, _torch.device):
+        spec = [spec]
+    devices = tuple(_checked(d) for d in spec)
+    if not devices:
+        raise ValueError("no device given")
+    # an unnamed card in a list is the current one
+    devices = tuple(_torch.device("cuda", _torch.cuda.current_device())
+                    if d.type == "cuda" and d.index is None else d for d in devices)
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"a mesh mixes the CPU and cards: {','.join(map(str, devices))}")
+    if in_group:
+        if len(devices) > 1:
+            raise RuntimeError(f"a rank of a process group holds one device, not "
+                               f"{len(devices)}: under torchrun each rank takes its own card")
+        dev = devices[0]
+        if dev.type == "cuda" and dev.index != _torch.cuda.current_device():
+            raise RuntimeError(f"this rank's card is cuda:{_torch.cuda.current_device()}, not "
+                               f"{dev}: under torchrun each rank takes its own card")
+        if dev.type == "cpu" and dist.get_backend() != "gloo":
+            raise RuntimeError(f"a rank runs on the CPU only under gloo, not "
+                               f"{dist.get_backend()}")
+    return devices

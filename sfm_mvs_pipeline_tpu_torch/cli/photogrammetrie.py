@@ -6,12 +6,20 @@ prep -> stats sampler -> SIFT or ORB -> scene -> SfM -> PLYs, stats,
 artifacts and the scene.npz checkpoint -> dense MVS (--dense), or dense MVS
 resumed from a checkpoint (-Presume=). The flags are the JAX package's.
 
-Work runs on the card (-Pdevice=cuda, the default; the run fails without
-one) or, when asked with -Pdevice=cpu, on the CPU, where every kernel
-wrapper takes its plain PyTorch version.
+Work runs on the cards (-Pdevice=cuda, the default: every visible card;
+the run fails without one) or, when asked with -Pdevice=cpu, on the CPU,
+where every kernel wrapper takes its plain PyTorch version. The cards
+form one process's mesh (parallel/mesh.py), as the JAX package's
+jax.devices() do: features, RANSAC, PnP, fusion, meshing, texturing and
+the outputs run once on its first card, and matching and the depth maps
+shard over its cards past the JAX package's gates; bundle adjustment runs
+on the first card (sfm/incremental.py::_SHARDED_BA_MIN_OBS says why).
+-Pdevice= also takes a list (cuda:0,cuda:1; cuda:0,cuda:0 for two shards
+on one card; cpu,cpu,cpu,cpu).
 
 Launched once per rank by torchrun, the CLI joins the process group first
-(parallel/distributed.py) and each rank takes its card. Every rank runs
+(parallel/distributed.py) and each rank takes its card: -Pdevice=cuda then
+means the rank's card, never a mesh. Every rank runs
 the replicated stages (features, RANSAC, PnP, triangulation); matching,
 bundle adjustment and the depth maps run sharded over the ranks. Rank 0
 alone wipes -Pout= and writes the outputs; after the depth-map gather it
@@ -41,9 +49,13 @@ def print_usage() -> None:
   -Pimage=<dir|file>                 image directory (or repeated files)
   -Pout=<dir>                        working/output directory (default ./out)
   -Pcamera-model=simple|simple-radial|distortion   (default simple-radial)
-  -Pdevice=cuda|cpu                  where the work runs (default cuda: the
-                                     card, or fail; cpu runs the kernels'
-                                     plain PyTorch versions)
+  -Pdevice=cuda|cpu|<list>           where the work runs (default cuda:
+                                     every visible card as one mesh, or
+                                     fail; under torchrun the rank's card;
+                                     cpu runs the kernels' plain PyTorch
+                                     versions; a list such as
+                                     cuda:0,cuda:1 or cpu,cpu names the
+                                     mesh's shards)
   -Pfeature-detector=sift|orb        (default sift; orb = FAST-9 + Harris on
                                      an 8-level pyramid, rotated BRIEF)
   -Pfeature-limit=N                  max features per image (default 10000,
@@ -97,7 +109,8 @@ def print_usage() -> None:
                                      counts at the end
   --help
 
-Under torchrun (one process per rank, e.g. python -m torch.distributed.run
+On one host, one process drives every card (the default). Across hosts,
+under torchrun (one process per rank, e.g. python -m torch.distributed.run
 --standalone --nproc-per-node=2 -m sfm_mvs_pipeline_tpu_torch ...) matching,
 bundle adjustment and the depth maps run sharded over the ranks: nccl when
 every rank has its own card, gloo when ranks share one or run on the CPU."""
@@ -119,7 +132,8 @@ def main(args: AppArgs) -> int:
 
     # first: under torchrun, join the group and take this rank's card
     joined = not dist.is_initialized()
-    distributed.initialize_distributed(backend="gloo" if _device_name(args) == "cpu" else None)
+    distributed.initialize_distributed(
+        backend="gloo" if _device_name(args).startswith("cpu") else None)
     try:
         return _main(args)
     finally:
@@ -135,7 +149,7 @@ def _main(args: AppArgs) -> int:
         log.error("no -Pimage given")
         print_usage()
         return 2
-    dev = _device(args)  # before the workdir wipe: a run without its card fails first
+    mesh = _device(args)  # before the workdir wipe: a run without its card fails first
     writer = distributed.process_index() == 0
 
     # a resume checkpoint inside the output dir (resuming from the previous
@@ -167,8 +181,9 @@ def _main(args: AppArgs) -> int:
             stage_timer.enable()
         try:
             if args.get("resume"):
-                return _run_resumed(args, out_dir, args.get("resume"), dev)
-            return _run_profiled(args, out_dir, image_args, dev)
+                return _run_profiled(args, mesh, lambda: _run_resumed(
+                    args, out_dir, args.get("resume"), mesh))
+            return _run_profiled(args, mesh, lambda: _run_inner(args, out_dir, image_args, mesh))
         finally:
             if sampler:
                 sampler.stop()
@@ -200,33 +215,41 @@ def _device_name(args: AppArgs) -> str:
 
 
 def _device(args: AppArgs):
-    """-Pdevice=cuda|cpu (default cuda): the port's counterpart of
-    JAX_PLATFORMS. cuda without a card raises."""
+    """The Mesh of -Pdevice=cuda|cpu|<list> (default cuda), the port's
+    counterpart of JAX_PLATFORMS and jax.devices(): resolve_devices' rules.
+    cuda without a card, or a card that does not exist, raises."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(_device_name(args))
+
+
+def _log_devices(mesh) -> None:
+    """One line a device of the mesh: its card's name and UUID."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch import default_device
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import _card_id
 
-    name = _device_name(args)
-    if name == "cuda":
-        return default_device()
-    if name == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"unknown -Pdevice={name} (expected cuda|cpu)")
+    for i, dev in enumerate(mesh.devices):
+        where = (f"{torch.cuda.get_device_name(dev)}, {_card_id(dev)}" if dev.type == "cuda"
+                 else "cpu")
+        log.info(f"device: {where}" if len(mesh) == 1 else
+                 f"mesh device {i} of {len(mesh)}: {dev}, {where}")
 
 
-def _run_profiled(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
-    """_run_inner, under torch.profiler when -Pprofile=<dir> is given: CPU
-    and (on the card) CUDA activity, written as a Chrome trace into <dir>."""
+def _run_profiled(args: AppArgs, mesh, run) -> int:
+    """run() (a run from images or resumed), under torch.profiler when
+    -Pprofile=<dir> is given: CPU and (on the cards) CUDA activity, written
+    as a Chrome trace into <dir>."""
     profile_dir = args.get("profile")
     if not profile_dir:
-        return _run_inner(args, out_dir, image_args, dev)
+        return run()
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    if mesh.first.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        rc = _run_inner(args, out_dir, image_args, dev)
+        rc = run()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
@@ -234,7 +257,7 @@ def _run_profiled(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
     return rc
 
 
-def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
+def _run_inner(args: AppArgs, out_dir: str, image_args: list, mesh) -> int:
     import torch
 
     from sfm_mvs_pipeline_tpu_torch.models.cameras import make_intrinsics
@@ -255,7 +278,8 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
     from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
     from sfm_mvs_pipeline_tpu_torch.utils.stats import write_reprojection_stats
 
-    log.info(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+    _log_devices(mesh)
+    dev = mesh.first
 
     # ---- enumerate images (dir or repeated files, sorted)
     paths = []
@@ -326,7 +350,7 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
         ba=BAConfig(),
     )
     with stage("sfm"):
-        stats = reconstruct(scene, pairs, cfg, log=logging.AppLogger("SfM").info, device=dev)
+        stats = reconstruct(scene, pairs, cfg, log=logging.AppLogger("SfM").info, devices=mesh)
     log.info(f"SfM done: {stats}")
     if stats.get("baseline") is None:
         log.error("reconstruction failed: no baseline pair")
@@ -358,12 +382,12 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, dev) -> int:
             # durable scene checkpoint, the same format the JAX package writes
             save_scene(scene, os.path.join(out_dir, "scene.npz"))
     if args.is_flag("dense"):
-        _run_dense(args, scene, out_dir, dev)
+        _run_dense(args, scene, out_dir, mesh)
     log.info("done")
     return 0
 
 
-def _run_dense(args: AppArgs, scene, out_dir: str, dev) -> None:
+def _run_dense(args: AppArgs, scene, out_dir: str, mesh) -> None:
     """The dense branch (ref: MVS stage of PhotogrammetrieCli.cpp:229-240)."""
     from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import MVSConfig, run_mvs
     from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
@@ -378,10 +402,10 @@ def _run_dense(args: AppArgs, scene, out_dir: str, dev) -> None:
         keep_artifacts=args.is_flag("artifacts"),
     )
     with stage("dense"):
-        run_mvs(scene, out_dir, cfg, log=logging.AppLogger("MVS").info, device=dev)
+        run_mvs(scene, out_dir, cfg, log=logging.AppLogger("MVS").info, devices=mesh)
 
 
-def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, dev) -> int:
+def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, mesh) -> int:
     """Resume from a scene checkpoint: re-run exports and/or dense MVS
     without repeating SfM (reference mvs.bin parity)."""
     from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene, save_scene
@@ -410,7 +434,7 @@ def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, dev) -> int:
             scene.image_size,
         )
     if args.is_flag("dense"):
-        _run_dense(args, scene, out_dir, dev)
+        _run_dense(args, scene, out_dir, mesh)
     log.info("done")
     return 0
 

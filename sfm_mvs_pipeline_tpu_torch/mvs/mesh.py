@@ -343,7 +343,9 @@ def mesh_from_depth_maps(
     log(f"clustered: {len(V)} verts, {len(F)} faces (cell {cell:.4g})")
 
     V, F, C = remove_small_components(V, F, C)
+    log(f"small components removed: {len(V)} verts, {len(F)} faces")
     V, F, C = close_holes(V, F, C, max_edges=close_holes_edges)
+    log(f"holes closed: {len(V)} verts, {len(F)} faces")
     V = laplacian_smooth(V, F, smooth_iters)
     log(f"cleaned: {len(V)} verts, {len(F)} faces")
     return {"vertices": V, "faces": F, "colors": C}

@@ -11,11 +11,13 @@ exporter's undistorted-image handoff (ref: OpenMvsUtils.cpp:136-152):
   * meshing + cleanup + optional refine/texture (ref: MVS.cpp:130-181)
 
 Every view's depth map comes from one function, depth_map_view, and
-depth_maps_by_view runs it over the views: on one rank for every view, in
-a process group of more than one rank for each rank's block of the views,
-gathered to every rank, so the depth maps do not depend on the world
-size. Rank 0 alone then fuses, meshes and writes; the other ranks return
-after the gather, as no collective follows it.
+depth_maps_by_view runs it over the views: on one device for every view,
+and over more shards (the cards of this process's mesh, or torchrun's
+ranks) for each shard's block of the views, each card in a thread of its
+own, gathered on the first card in view order, so the depth maps do not
+depend on the shard count. Fusion, meshing and writing run once: in a
+mesh on its first card; under torchrun on rank 0 alone, as the other
+ranks return after the gather (no collective follows it).
 `patchmatch` runs classic PatchMatch in the rectified frame of each pair
 (kernel K3) on every device, where the JAX package does so on its TPU's
 one-device path only; views whose every
@@ -98,15 +100,16 @@ def _undistort_image(img: np.ndarray, intr: np.ndarray, device: torch.device) ->
 
 
 def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: None,
-            device: torch.device | str | None = None) -> dict:
-    """Densify (and optionally mesh) a reconstructed scene on `device`
-    (default: the card; raises without one). Writes pointcloud_dense.ply
-    (+ mesh_dense.ply) into out_dir. Returns results: the depth maps and
-    valids, and on rank 0 (every run outside a process group) the dense
-    cloud and mesh."""
+            device: torch.device | str | None = None, devices=None) -> dict:
+    """Densify (and optionally mesh) a reconstructed scene on the mesh
+    `devices`, or `device` (give one: a Mesh or a resolve_devices spec;
+    default every visible card; raises without one): the depth maps
+    view-sharded over its cards, everything else on its first.
+    Writes pointcloud_dense.ply (+ mesh_dense.ply) into out_dir. Returns
+    results: the depth maps and valids, and on rank 0 (every run outside a
+    process group) the dense cloud and mesh."""
     import cv2
 
-    from sfm_mvs_pipeline_tpu_torch import resolve_device
     from sfm_mvs_pipeline_tpu_torch.mvs.fusion import fuse_depth_maps
     from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import (
         depth_range,
@@ -114,15 +117,15 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
         select_neighbors,
     )
     from sfm_mvs_pipeline_tpu_torch.mvs.rectified import rect_geometry_ok
-    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import check_agree
-    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards, check_agree
     from sfm_mvs_pipeline_tpu_torch.utils.images import load_rgb
     from sfm_mvs_pipeline_tpu_torch.utils.ply import write_ply_points
 
     cfg = cfg or MVSConfig()
     if cfg.method not in ("rect", "sweep", "patchmatch"):
         raise ValueError(f"unknown dense method {cfg.method!r}")
-    dev = resolve_device(device)
+    shards = Shards.of_entry(device, devices)
+    dev = shards.first
     rec = [int(s) for s in np.nonzero(scene.recovered)[0]]
     if len(rec) < 2:
         log("not enough recovered views for densification")
@@ -188,7 +191,7 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
                 log(f"view {s}: {n_bad}/{len(nbrs_i)} neighbors masked by "
                     "the rectification geometry gate")
 
-    def one_view(i):
+    def one_view(i, grays_d, poses_d, intr_d):
         s = rec[i]
         nbrs = [idx_of[n] for n in neighbors.get(s, []) if n in idx_of]
         if not nbrs:
@@ -201,15 +204,15 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             f"{int(valid.sum())}/{h*w} valid px{tag}")
         return depth, valid
 
-    rank, size = world()
-    if size > 1:
-        log(f"view-sharded depth maps over {size} ranks")
+    if shards.count > 1:
+        log(f"view-sharded depth maps over {shards.count} {shards.kind}")
         check_agree("run_mvs", grays, poses, intr_pinhole,
                     *fixed_neighbor_table(neighbors, rec, cfg.n_neighbors),
                     np.array([depth_range(scene, s) for s in rec]))
-    depth_maps, valids = depth_maps_by_view(len(rec), one_view, h, w, dev)
+    depth_maps, valids = depth_maps_by_view(len(rec), one_view, h, w, shards,
+                                            (grays_d, poses_d, intr_d))
     results = {"depth_maps": depth_maps, "valids": valids}
-    if rank != 0:  # fusion, mesh and texture make only what rank 0 writes
+    if shards.held[0] != 0:  # fusion, mesh and texture make only what rank 0 writes
         return results
     if cfg.keep_artifacts:
         for i, s in enumerate(rec):
@@ -294,28 +297,30 @@ def depth_map_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo, z
     return depth, valid, ""
 
 
-def depth_maps_by_view(n_views: int, one_view, h: int, w: int,
-                       device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+def depth_maps_by_view(n_views: int, one_view, h: int, w: int, shards,
+                       inputs: tuple = ()) -> tuple[np.ndarray, np.ndarray]:
     """(depth (V, H, W) f32, valid (V, H, W) bool) of every view, from
-    one_view(i) -> (depth, valid) tensors, or None (no depth: zeros,
-    invalid). One rank computes every view; in a process group of more than
-    one rank each rank computes its contiguous block of the views and an
-    all_gather (valid as uint8 on the wire) brings every view to every
-    rank."""
-    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import all_gather_cat
-    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import block, world
+    one_view(i, *inputs) -> (depth, valid) tensors, or None (no depth:
+    zeros, invalid). Each of the `shards` (parallel/distributed.py::Shards)
+    computes its contiguous block of the views (a shard past the last view
+    computes none) with `inputs` replicated to its device; the blocks are
+    gathered in shard order, which is view order (valid as uint8 on a
+    process group's wire). One shard computes every view."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import block
 
-    rank, size = world()
-    lo, hi = block(n_views, rank, size)
-    depth = torch.zeros((hi - lo, h, w), dtype=torch.float32, device=device)
-    valid = torch.zeros((hi - lo, h, w), dtype=torch.bool, device=device)
-    for i in range(lo, min(hi, n_views)):
-        res = one_view(i)
-        if res is not None:
-            depth[i - lo], valid[i - lo] = res
-    with stage("depth-map gather"):
-        return (all_gather_cat(depth)[:n_views].cpu().numpy(),
-                all_gather_cat(valid)[:n_views].cpu().numpy())
+    def one(sh, *rep):
+        lo, hi = block(n_views, sh.index, sh.count)
+        depth = torch.zeros((hi - lo, h, w), dtype=torch.float32, device=sh.device)
+        valid = torch.zeros((hi - lo, h, w), dtype=torch.bool, device=sh.device)
+        for i in range(lo, min(hi, n_views)):
+            res = one_view(i, *rep)
+            if res is not None:
+                depth[i - lo], valid[i - lo] = res
+        with stage("depth-map gather"):
+            return sh.all_gather_cat(depth)[:n_views], sh.all_gather_cat(valid)[:n_views]
+
+    depth, valid = shards.run(one, *(shards.replicated(x) for x in inputs))[0]
+    return depth.cpu().numpy(), valid.cpu().numpy()
 
 
 def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo, z_hi, w):

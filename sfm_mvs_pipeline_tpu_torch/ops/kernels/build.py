@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -23,6 +24,34 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 REPORTS: dict[str, str] = {}  # source -> the ptxas -v report of its last verbose build
+_LOCK = threading.RLock()
+_LOADED: dict = {}
+
+
+def load(key, loader):
+    """loader()'s result, made once a key under the lock (a library built
+    and its entry points typed once, whichever thread asks first)."""
+    if key not in _LOADED:
+        with _LOCK:
+            if key not in _LOADED:
+                _LOADED[key] = loader()
+    return _LOADED[key]
+
+
+def reset_launches(*wrappers) -> None:
+    """Zero each wrapper's launch counts: `launches` (the total) and
+    `by_card` ({card index: launches})."""
+    with _LOCK:
+        for fn in wrappers:
+            fn.launches = 0
+            fn.by_card = {}
+
+
+def count_launch(fn, device) -> None:
+    """One launch of wrapper fn's kernel on `device`'s card."""
+    with _LOCK:
+        fn.launches += 1
+        fn.by_card[device.index] = fn.by_card.get(device.index, 0) + 1
 
 
 def _nvcc() -> str:
@@ -49,6 +78,11 @@ def build(*sources: str, verbose: bool = False) -> list[str]:
     each, all started together. Returns the library paths; `verbose` adds
     `-Xptxas -v`, rebuilds, prints each compiler report and keeps it in
     REPORTS."""
+    with _LOCK:
+        return _build(sources, verbose)
+
+
+def _build(sources, verbose: bool) -> list[str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = [library_path(s) for s in sources]
     jobs = []

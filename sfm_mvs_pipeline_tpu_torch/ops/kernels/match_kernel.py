@@ -17,7 +17,9 @@ Dispatch: a CPU tensor takes the plain PyTorch version
 (ops/matching.py::two_nn_batch over two_nn or two_nn_exact); a CUDA tensor
 launches the kernel or raises. There is no fallback from the card to the plain version.
 A launch runs under its inputs' card (a device guard and that card's current
-stream), whichever card is current.
+stream), whichever card is current, and raises when its inputs do not all
+lie on that card. Each wrapper counts its launches, in total (`launches`)
+and a card (`by_card`), under build.py's lock.
 """
 
 from __future__ import annotations
@@ -38,22 +40,19 @@ EXACT_BK = 64  # K1x's operand chunk: a 64-wide hi slice beside its lo slice
 EXACT_BQ = 128  # queries a K1x block owns
 EXACT_MAX_D = 256  # K1x keeps a block's query operands in shared memory
 
-_libs: dict = {}
-
-
 def build(verbose: bool = False) -> list[str]:
     """Compile both kernel libraries if missing; returns their paths."""
     return _build.build(SOURCE, EXACT_SOURCE, verbose=verbose)
 
 
 def _load(source: str, name: str, argtypes: list):
-    if (source, name) not in _libs:
-        lib = ctypes.CDLL(_build.build(source)[0])
-        fn = getattr(lib, name)
+    def typed():
+        fn = getattr(ctypes.CDLL(_build.build(source)[0]), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[(source, name)] = fn
-    return _libs[(source, name)]
+        return fn
+
+    return _build.load((source, name), typed)
 
 
 def prepare_operands(descriptors: torch.Tensor, valid: torch.Tensor):
@@ -166,11 +165,11 @@ def two_nn_batch_fused(
         err = launch(*args, torch.cuda.current_stream(descriptors.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    two_nn_batch_fused.launches += 1
+    _build.count_launch(two_nn_batch_fused, descriptors.device)
     return idx, best, second
 
 
-two_nn_batch_fused.launches = 0
+_build.reset_launches(two_nn_batch_fused)
 
 
 def compact_slots(valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -272,11 +271,11 @@ def two_nn_exact_batch(
         )
     if err != 0:
         raise RuntimeError(f"K1x launch failed: cudaError {err}")
-    two_nn_exact_batch.launches += 1
+    _build.count_launch(two_nn_exact_batch, descriptors.device)
     return scatter_back(idx, best, second, perm, pairs, valid)
 
 
-two_nn_exact_batch.launches = 0
+_build.reset_launches(two_nn_exact_batch)
 
 
 def exact_smem(d: int) -> int:

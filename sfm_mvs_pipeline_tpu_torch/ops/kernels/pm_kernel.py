@@ -17,7 +17,9 @@ Dispatch: a CPU tensor takes the plain PyTorch version
 (mvs/patchmatch.py::pm_score_rect_plain); a CUDA tensor launches the kernel
 or raises. There is no fallback from the card to the plain version.
 A launch runs under its inputs' card (a device guard and that card's current
-stream), whichever card is current.
+stream), whichever card is current, and raises when its inputs do not all
+lie on that card. Each wrapper counts its launches, in total (`launches`)
+and a card (`by_card`), under build.py's lock.
 """
 
 from __future__ import annotations
@@ -31,23 +33,21 @@ from sfm_mvs_pipeline_tpu_torch.ops.kernels import build as _build
 SOURCE = "pm_kernel.cu"
 MAX_R = 4  # window radii compiled into the kernel: 1..4
 
-_lib = None
-
-
 def build(verbose: bool = False) -> str:
     """Compile the kernel library if missing; returns its path."""
     return _build.build(SOURCE, verbose=verbose)[0]
 
 
+def _open():
+    lib = ctypes.CDLL(build())
+    lib.pm_score_rect_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.pm_score_rect_launch.restype = ctypes.c_int
+    return lib
+
+
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.pm_score_rect_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        lib.pm_score_rect_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.load(SOURCE, _open)
 
 
 def _check(cands, maps: dict, window_radius: int, maxd: int, parity) -> None:
@@ -113,8 +113,8 @@ def pm_score_rect(
             -1 if parity is None else parity, min(maxd, 1 << 20), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
-    pm_score_rect.launches += 1
+    _build.count_launch(pm_score_rect, cands.device)
     return out
 
 
-pm_score_rect.launches = 0
+_build.reset_launches(pm_score_rect)

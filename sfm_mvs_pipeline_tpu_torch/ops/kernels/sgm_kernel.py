@@ -27,7 +27,9 @@ first use and this module loads it with ctypes.
 Dispatch: a CPU tensor takes the plain PyTorch version (mvs/sgm.py); a CUDA
 tensor launches the kernel or raises. There is no fallback from the card to
 the plain version. A launch runs under its inputs' card (a device guard and
-that card's current stream), whichever card is current.
+that card's current stream), whichever card is current, and raises when its inputs do not all
+lie on that card. Each wrapper counts its launches, in total (`launches`)
+and a card (`by_card`), under build.py's lock.
 """
 
 from __future__ import annotations
@@ -41,30 +43,27 @@ from sfm_mvs_pipeline_tpu_torch.ops.kernels import build as _build
 SOURCE = "sgm_kernel.cu"
 MAX_D = 256  # 8 disparities a lane of a warp
 
-_lib = None
-
-
 def build(verbose: bool = False) -> str:
     """Compile the kernel library if missing; returns its path."""
     return _build.build(SOURCE, verbose=verbose)[0]
 
 
+def _open():
+    lib = ctypes.CDLL(build())
+    common = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+              ctypes.c_int, ctypes.c_float, ctypes.c_float]
+    lib.sgm_bidir_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *common, ctypes.c_void_p]
+    lib.sgm_hpair_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                     *common, ctypes.c_void_p]
+    lib.sgm_dir_acc_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *common,
+                                       ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.sgm_bidir_launch, lib.sgm_hpair_launch, lib.sgm_dir_acc_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        common = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                  ctypes.c_int, ctypes.c_float, ctypes.c_float]
-        lib.sgm_bidir_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *common,
-                                         ctypes.c_void_p]
-        lib.sgm_hpair_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                         *common, ctypes.c_void_p]
-        lib.sgm_dir_acc_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *common,
-                                           ctypes.c_int, ctypes.c_void_p]
-        for fn in (lib.sgm_bidir_launch, lib.sgm_hpair_launch, lib.sgm_dir_acc_launch):
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _build.load(SOURCE, _open)
 
 
 def _geometry(v: torch.Tensor, axis: int):
@@ -109,11 +108,11 @@ def sgm_bidir(cost_hwd: torch.Tensor, p1: float, p2: float, axis: int) -> torch.
         err = lib.sgm_bidir_launch(cost_hwd.data_ptr(), out.data_ptr(), S, L, step, line, D,
                                    float(p1), float(p2), stream)
     _raise_on(err, "K2a")
-    sgm_bidir.launches += 1
+    _build.count_launch(sgm_bidir, cost_hwd.device)
     return out
 
 
-sgm_bidir.launches = 0
+_build.reset_launches(sgm_bidir)
 
 
 def sgm_hpair(cost_hwd: torch.Tensor, p1: float, p2: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,11 +133,11 @@ def sgm_hpair(cost_hwd: torch.Tensor, p1: float, p2: float) -> tuple[torch.Tenso
         err = lib.sgm_hpair_launch(cost_hwd.data_ptr(), acc.data_ptr(), copy.data_ptr(), S, L,
                                    step, line, D, float(p1), float(p2), stream)
     _raise_on(err, "K2b (horizontal pair)")
-    sgm_hpair.launches += 1
+    _build.count_launch(sgm_hpair, cost_hwd.device)
     return acc, copy
 
 
-sgm_hpair.launches = 0
+_build.reset_launches(sgm_hpair)
 
 
 def sgm_dir_acc(cost_hwd: torch.Tensor, acc: torch.Tensor, p1: float, p2: float,
@@ -161,11 +160,11 @@ def sgm_dir_acc(cost_hwd: torch.Tensor, acc: torch.Tensor, p1: float, p2: float,
         err = lib.sgm_dir_acc_launch(cost_hwd.data_ptr(), acc.data_ptr(), S, L, step, line, D,
                                      float(p1), float(p2), int(reverse), stream)
     _raise_on(err, "K2b")
-    sgm_dir_acc.launches += 1
+    _build.count_launch(sgm_dir_acc, cost_hwd.device)
     return acc
 
 
-sgm_dir_acc.launches = 0
+_build.reset_launches(sgm_dir_acc)
 
 
 def sgm_staged_hwd(cost_hwd: torch.Tensor, p1: float, p2: float) -> torch.Tensor:

@@ -1,26 +1,29 @@
-"""Point-sharded bundle adjustment: each rank holds a block of the points,
-the reduced camera system is all-reduced.
+"""Point-sharded bundle adjustment: each shard holds a block of the points,
+the reduced camera system is summed over the shards.
 
 Port of sfm_mvs_pipeline_tpu/parallel/ba.py (the multi-chip DENSE_SCHUR
-replacement):
+replacement), over the shards this process holds (a card of the mesh, or
+a rank under torchrun; parallel/distributed.py::Shards):
   * points are split into contiguous blocks balanced by observation count,
-    one per rank, each with its points' observations (shard_scene_by_points)
-  * each rank builds its block's partial system with the one-rank build functions
-    of sfm/ba.py, and one all-reduce per LM build sums the undamped terms
-    (Hcc, g, S_corr, rhs_corr, cost) before damping
-  * every rank solves the replicated system with the one-rank solver
-    (BAConfig.solver) and back-substitutes its own points
-  * the trial cost is all-reduced before the accept test, so every rank
-    takes the same branch and the same stop test
-  * the points are gathered and scattered back by point_ids at the end, and
-    rank 0's poses and intrinsics broadcast, so every rank returns the same
-    bits
+    one per shard, each with its points' observations (shard_scene_by_points)
+  * each shard builds its block's partial system with the one-device build
+    functions of sfm/ba.py, and one sum per LM build adds the undamped
+    terms (Hcc, g, S_corr, rhs_corr, cost) before damping: in a mesh in
+    card order on the first card, under torchrun by an all-reduce
+  * every shard solves the summed system, the same bits on each, with the
+    one-device solver (BAConfig.solver) and back-substitutes its own points
+  * the trial cost is summed before the accept test, so every shard takes
+    the same branch and the same stop test
+  * the points are gathered and scattered back by point_ids at the end,
+    and shard 0's poses and intrinsics broadcast, so every rank returns
+    the same bits
 
 The JAX package's fused dense LM (one shard_map program, its
 parallel/ba.py:148-238) is a compile-time device of XLA; the port runs the
-same numbers through the one-rank LM loop (sfm/ba.py::lm_solve). At world
-size 1 the result is bit-equal to run_bundle_adjustment; above it the sums
-run in another order (the tests state the tolerance).
+same numbers through the one-device LM loop (sfm/ba.py::lm_solve). On one
+shard the result is bit-equal to run_bundle_adjustment; on more the sums
+run in another order (the tests state the tolerance), and two runs over
+one mesh give the same bits.
 """
 
 from __future__ import annotations
@@ -28,13 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sfm_mvs_pipeline_tpu_torch.parallel.distributed import (
-    all_gather_cat,
-    all_reduce_sum,
-    broadcast,
-    check_agree,
-)
-from sfm_mvs_pipeline_tpu_torch.parallel.mesh import rank_device, world
+from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards, check_agree
 from sfm_mvs_pipeline_tpu_torch.sfm.ba import (
     DENSE_GRID_MAX_SLOTS,
     BAConfig,
@@ -134,45 +131,53 @@ def run_bundle_adjustment_sharded(
     pose_free: np.ndarray | None = None,
     config: BAConfig | None = None,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str | None = None,
+    device=None,
 ) -> dict:
-    """Distributed LM bundle adjustment over the process group's ranks,
-    with run_bundle_adjustment's arguments and result dict (the JAX
-    package's mesh argument is gone: the ranks are the mesh). Work runs in
-    `dtype` on this rank's device (default: the card)."""
-    rank, size = world()
-    dev = rank_device(device)
+    """Distributed LM bundle adjustment over the shards, with
+    run_bundle_adjustment's arguments and result dict. Work runs in `dtype`
+    on each shard's device: this rank's under torchrun, else each device of
+    the mesh `device` (the JAX package's mesh: a Mesh or a resolve_devices
+    spec; default every visible card)."""
+    shards = Shards(device)
     check_agree("run_bundle_adjustment_sharded", points, poses, intr, cam_of_shot, obs_point,
                 obs_shot, obs_uv, obs_w, intr_mask, pose_free)
     n_shots = poses.shape[0]
-    sh = shard_scene_by_points(size, points, obs_point, obs_shot, obs_uv, obs_w, n_shots=n_shots)
-    n_loc = int((sh["point_ids"][rank] >= 0).sum())
-    n_obs = int(sh["n_obs"][rank])
-    if sh["table_kind"] == "dense":
-        grid, tab = (sh["uv_ps"][rank][:n_loc], sh["w_ps"][rank][:n_loc]), None
-    else:
-        grid, tab = None, sh["track_tab"][rank][:n_loc]
-    pts, pos, K, cost, it, conv, lam, table_kind = lm_solve(
-        sh["points"][rank][:n_loc], poses, intr, cam_of_shot, sh["obs_point"][rank][:n_obs],
-        sh["obs_shot"][rank][:n_obs], sh["obs_uv"][rank][:n_obs], sh["obs_w"][rank][:n_obs],
-        intr_mask, pose_free, grid, tab, config, dtype, dev, reduce=all_reduce_sum)
-
-    # scatter every rank's points back to global order; rank 0's cameras
+    sh = shard_scene_by_points(shards.count, points, obs_point, obs_shot, obs_uv, obs_w,
+                               n_shots=n_shots)
     P_loc = sh["points"].shape[1]
-    block = torch.zeros((P_loc, 3), dtype=pts.dtype, device=dev)
-    block[:n_loc] = pts
-    gathered = all_gather_cat(block).cpu().numpy().reshape(size, P_loc, 3)
+
+    def one(shard):
+        d, dev = shard.index, shard.device
+        n_loc = int((sh["point_ids"][d] >= 0).sum())
+        n_obs = int(sh["n_obs"][d])
+        if sh["table_kind"] == "dense":
+            grid, tab = (sh["uv_ps"][d][:n_loc], sh["w_ps"][d][:n_loc]), None
+        else:
+            grid, tab = None, sh["track_tab"][d][:n_loc]
+        pts, pos, K, cost, it, conv, lam, table_kind = lm_solve(
+            sh["points"][d][:n_loc], poses, intr, cam_of_shot, sh["obs_point"][d][:n_obs],
+            sh["obs_shot"][d][:n_obs], sh["obs_uv"][d][:n_obs], sh["obs_w"][d][:n_obs],
+            intr_mask, pose_free, grid, tab, config, dtype, dev, reduce=shard.all_reduce_sum)
+        block = torch.zeros((P_loc, 3), dtype=pts.dtype, device=dev)
+        block[:n_loc] = pts
+        return (shard.all_gather_cat(block).cpu().numpy(), shard.broadcast(pos).cpu().numpy(),
+                shard.broadcast(K).cpu().numpy(), float(cost), it, bool(conv), float(lam),
+                table_kind)
+
+    gathered, pos, K, cost, it, conv, lam, table_kind = shards.run(one)[0]
+    # scatter every shard's points back to global order
+    gathered = gathered.reshape(shards.count, P_loc, 3)
     out_points = np.array(points, copy=True)
-    for d in range(size):
+    for d in range(shards.count):
         ids = sh["point_ids"][d]
         out_points[ids[ids >= 0]] = gathered[d][ids >= 0]
     return {
         "points": out_points,
-        "poses": broadcast(pos).cpu().numpy().astype(poses.dtype),
-        "intrinsics": broadcast(K).cpu().numpy().astype(intr.dtype),
-        "cost": float(cost),
+        "poses": pos.astype(poses.dtype),
+        "intrinsics": K.astype(intr.dtype),
+        "cost": cost,
         "iterations": it,
-        "converged": bool(conv),
-        "lambda": float(lam),
+        "converged": conv,
+        "lambda": lam,
         "table_kind": table_kind,
     }

@@ -1,11 +1,21 @@
 """Multi-process runtime: process-group bring-up, host-level work sharding
-and the collectives the sharded paths use.
+and the collectives the sharded paths use, over ranks or over the cards
+of one process's mesh.
 
 Port of sfm_mvs_pipeline_tpu/parallel/distributed.py. torchrun starts one
 process per rank and exports RANK, WORLD_SIZE, LOCAL_RANK,
 LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT; initialize_distributed
 reads them. In a single process everything degrades to no-ops, so the
 pipeline code is the same either way.
+
+The sharded functions are written once, over Shards: the shards this
+process holds, one (the rank's) under torchrun, every card of the mesh in
+one process (parallel/mesh.py). Shards.run calls the function once a
+shard, each in a thread of its own under its card and a stream of its own
+in a mesh, and the function's collectives (Shard.all_reduce_sum,
+all_gather_cat, broadcast) go to the process group or meet across the
+threads: a mesh sums in card order on its first card and concatenates
+there in card order, so repeated runs give the same bits.
 
 The backend follows a stated rule, never a caught failure: nccl when
 every local rank has a card of its own, gloo when ranks share a card or run
@@ -18,15 +28,27 @@ measurement with the timers on reads the time spent in them.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import hashlib
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
+from sfm_mvs_pipeline_tpu_torch.parallel.mesh import (
+    Mesh,
+    block,
+    make_mesh,
+    pad_to_multiple,
+    replicated,
+    shard_leading,
+    world,
+)
 from sfm_mvs_pipeline_tpu_torch.utils import logger as logging
+from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
 from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
 
 # ranks that diverge (one waits in a collective the others never enter)
@@ -258,3 +280,197 @@ def check_agree(what: str, *arrays) -> None:
     if len(set(seen)) != 1:
         raise RuntimeError(f"{what}: the ranks' inputs differ (digests by rank {seen}); "
                            f"the replicated stages diverged")
+
+
+# ---------------------------------------------------------------------------
+# the shards this process holds: a rank, or the cards of a mesh
+
+
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """t, once the calling thread's stream on t's card has finished it: a
+    tensor crosses between a mesh's threads (and so between streams) only
+    settled."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
+_LINALG_LOADED = threading.Event()
+
+
+def _load_cuda_linalg(dev: torch.device) -> None:
+    """torch loads its CUDA linear-algebra library at the first linalg call
+    on a card, and two threads making that first call at once fail ("lazy
+    wrapper should be called at most once"): make it once on the calling
+    thread before a mesh's threads start."""
+    if not _LINALG_LOADED.is_set():
+        torch.linalg.cholesky_ex(torch.ones((1, 1), device=dev))
+        _LINALG_LOADED.set()
+
+
+class _Rendezvous:
+    """Where a mesh's shard threads meet for a collective: each puts its
+    tensor in its slot, shard 0 combines them, each takes the result."""
+
+    def __init__(self, n: int):
+        self.slots = [None] * n
+        self.result = None
+        self.barrier = threading.Barrier(n, timeout=DEFAULT_TIMEOUT.total_seconds())
+
+    def exchange(self, index: int, t: torch.Tensor, combine) -> torch.Tensor:
+        self.slots[index] = _settled(t)
+        self.barrier.wait()  # every slot filled
+        if index == 0:
+            self.result = _settled(combine(self.slots))
+        # the result made; shard 0 replaces it only after the next
+        # exchange's first wait, which every shard reaches after taking it
+        self.barrier.wait()
+        return self.result
+
+
+class Shard:
+    """One shard of a sharded function: its index among `count` shards, its
+    device, and the collectives over every shard."""
+
+    def __init__(self, shards: Shards, index: int, device: torch.device, rv=None):
+        self.shards, self.index, self.device, self._rv = shards, index, device, rv
+        self.count = shards.count
+
+    def _mesh(self, what: str, t: torch.Tensor, combine) -> torch.Tensor:
+        with stage(f"collective {what}"):
+            return self._rv.exchange(self.index, t, combine)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of t over the shards, on this shard's device: in a mesh
+        summed in card order on the first card."""
+        if self.shards.ranks or self.count == 1:
+            return all_reduce_sum(t)
+        first = self.shards.first
+
+        def total(parts):
+            acc = parts[0].to(first, copy=True)
+            for p in parts[1:]:
+                acc += p.to(first)
+            return acc
+
+        return _settled(self._mesh("all_reduce", t, total).to(self.device, copy=True))
+
+    def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
+        """Every shard's t (equal shapes) concatenated along dim 0 in shard
+        order, on the first device this process holds (under torchrun the
+        rank's; in a mesh its first card, the same tensor for every
+        shard)."""
+        if self.shards.ranks or self.count == 1:
+            return all_gather_cat(t)
+        first = self.shards.first
+        return self._mesh("all_gather", t, lambda parts: torch.cat([p.to(first) for p in parts]))
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Shard src's t, on this shard's device."""
+        if self.shards.ranks or self.count == 1:
+            return broadcast(t, src)
+        return _settled(self._mesh("broadcast", t, lambda parts: parts[src]).to(
+            self.device, copy=True))
+
+
+class Shards:
+    """The shards this process holds of a sharded function's `count`:
+    under torchrun the rank's one shard on its device (count = the world
+    size), else one shard a device of the mesh (count = its size).
+    `devices` is a Mesh or a resolve_devices spec."""
+
+    def __init__(self, devices=None):
+        rank, size = world()
+        self.ranks = size > 1
+        if self.ranks:
+            from sfm_mvs_pipeline_tpu_torch import resolve_devices
+
+            spec = devices.devices if isinstance(devices, Mesh) else devices
+            self.mesh = Mesh(resolve_devices(spec))  # one device: a rank never builds a mesh
+            self.held, self.count = [rank], size
+        else:
+            self.mesh = make_mesh(devices)
+            self.held, self.count = list(range(len(self.mesh))), len(self.mesh)
+            if len(self.mesh) > 1:
+                stage_timer.watch(self.mesh.devices)
+        self.devices = self.mesh.devices
+        self.first = self.mesh.first
+        self.kind = "ranks" if self.ranks else "devices"
+
+    @classmethod
+    def of_entry(cls, device, devices) -> Shards:
+        """An entry point's shards (reconstruct, run_mvs): its `devices`, or
+        its `device`, the same setting under two names, so at most one may
+        be given."""
+        if device is not None and devices is not None:
+            raise ValueError("give device= or devices=, not both")
+        return cls(devices if devices is not None else device)
+
+    def replicated(self, x) -> list[torch.Tensor]:
+        """x on the device of each shard this process holds, in shard order
+        (parallel/mesh.py::replicated)."""
+        return replicated(self.mesh, x)
+
+    def leading(self, x, fill=0) -> list[torch.Tensor]:
+        """The blocks of x's leading axis (padded with `fill` to a multiple
+        of the shard count) of the shards this process holds, each on its
+        shard's device, in shard order: in a mesh every block
+        (parallel/mesh.py::shard_leading), under torchrun the rank's."""
+        if not self.ranks:
+            return shard_leading(self.mesh, x, fill)
+        lo, hi = block(len(x), self.held[0], self.count)
+        padded = pad_to_multiple(np.asarray(torch.as_tensor(x).cpu()), self.count, fill)
+        return [torch.as_tensor(padded[lo:hi], device=self.first)]
+
+    def run(self, fn, *per_shard) -> list:
+        """[fn(shard, *its items of per_shard) for each shard this process
+        holds], in shard order; each of `per_shard` is a list with one item
+        a held shard (Shards.replicated, Shards.leading). One shard runs in
+        the calling thread. A mesh runs each shard in a thread of its own
+        under its card: the first shard of a card on the caller's current
+        stream there, any other on a stream of its own, each tagged in the
+        log and timed on its own stream (stage_timer.merge keeps each
+        stage's longest shard). A failing shard breaks the others'
+        collectives, and the first failure is raised."""
+        if len(self.held) == 1:
+            return [fn(Shard(self, self.held[0], self.devices[0]), *(p[0] for p in per_shard))]
+        streams, seen = [], set()
+        for dev in self.devices:
+            if dev.type != "cuda":
+                streams.append(None)
+                continue
+            _load_cuda_linalg(dev)
+            cur = torch.cuda.current_stream(dev)
+            cur.synchronize()  # the caller's inputs are ready for every thread
+            streams.append(torch.cuda.Stream(dev) if dev in seen else cur)
+            seen.add(dev)
+        rv = _Rendezvous(len(self.held))
+        timed = []  # each shard thread's stages
+
+        def work(i: int):
+            dev = self.devices[i]
+            with contextlib.ExitStack() as ctx:
+                if streams[i] is not None:
+                    ctx.enter_context(torch.cuda.device(dev))
+                    ctx.enter_context(torch.cuda.stream(streams[i]))
+                ctx.enter_context(logging.shard_tag(i, self.count, dev))
+                ctx.enter_context(stage_timer.shard_thread(timed))
+                try:
+                    out = fn(Shard(self, self.held[i], dev, rv), *(p[i] for p in per_shard))
+                except BaseException:
+                    rv.barrier.abort()  # the other shards leave their collectives
+                    raise
+                if streams[i] is not None:
+                    streams[i].synchronize()
+                return out
+
+        try:
+            with ThreadPoolExecutor(len(self.held), thread_name_prefix="shard") as pool:
+                futures = [pool.submit(work, i) for i in range(len(self.held))]
+        finally:
+            stage_timer.merge(timed)
+        errors = [f.exception() for f in futures if f.exception() is not None]
+        if errors:
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        return [f.result() for f in futures]

@@ -1,17 +1,21 @@
-"""One pass of every sharded path at toy shapes, under torchrun.
+"""One pass of every sharded path at toy shapes, over a mesh of one
+process's devices or under torchrun.
 
 The port's twin of the JAX package's __graft_entry__.dryrun_multichip:
 pair-sharded matching (fast and exact), one LM step of point-sharded
 bundle adjustment and view-sharded depth maps (sweep, rect, rect with SGM
-and PatchMatch) over the process group's ranks. On the card it launches
-every kernel source (K1, K1x, K2a, K3), so a first run builds each of
-them on every rank at once.
+and PatchMatch) over the shards: the devices of a mesh in one process
+(as the JAX package's make_mesh(n_devices)), or the process group's
+ranks. On the card it launches every kernel source (K1, K1x, K2a, K3), so
+a first run builds each of them.
 
+    python -m sfm_mvs_pipeline_tpu_torch.parallel.dryrun [--device cpu,cpu,cpu,cpu]
     python -m torch.distributed.run --standalone --nproc-per-node=2 \\
         -m sfm_mvs_pipeline_tpu_torch.parallel.dryrun [--device cpu]
 
-Each rank prints one line, with its kernels' launch counts, and the run
-exits 0 when every path ran and every result has its shape and is finite.
+The mesh prints one line a device, each rank one line, with the kernels'
+launch counts, and the run exits 0 when every path ran and every result
+has its shape and is finite.
 """
 
 from __future__ import annotations
@@ -23,21 +27,30 @@ import numpy as np
 import torch
 
 
-def dryrun_multichip(n_devices: int, device: torch.device | str | None = None) -> None:
-    """Run each sharded path once over a group of n_devices ranks (this
-    process one of them), on `device` (default: the rank's card)."""
+def dryrun_multichip(n_devices: int, devices=None) -> None:
+    """Run each sharded path once over n_devices shards: under torchrun a
+    group of n_devices ranks (this process one of them, on `devices`:
+    "cpu", or by default the rank's card); else the mesh `devices` (a Mesh
+    or a resolve_devices spec; default the first n_devices visible cards),
+    which must have n_devices devices."""
     from sfm_mvs_pipeline_tpu_torch.ops.pairs import unordered_pairs
     from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
     from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
-    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import make_mesh, world
     from sfm_mvs_pipeline_tpu_torch.parallel.mvs import (
         compute_depth_maps_sharded,
         fixed_neighbor_table,
     )
     from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig
 
-    if world()[1] != n_devices:
-        raise RuntimeError(f"dryrun over {n_devices} ranks in a group of {world()[1]}")
+    if world()[1] > 1:
+        if world()[1] != n_devices:
+            raise RuntimeError(f"dryrun over {n_devices} ranks in a group of {world()[1]}")
+        where = devices
+    else:
+        where = make_mesh(devices if devices is not None else n_devices)
+        if len(where) != n_devices:
+            raise RuntimeError(f"dryrun over {n_devices} devices on a mesh of {len(where)}")
     rng = np.random.default_rng(0)
 
     # --- pair-sharded matching
@@ -46,7 +59,7 @@ def dryrun_multichip(n_devices: int, device: torch.device | str | None = None) -
     valid = np.ones((S, F), bool)
     pairs = unordered_pairs(S)
     for exact in (False, True):  # kernel K1, and K1x
-        idx, mask = match_pairs_sharded(descs, valid, pairs, exact=exact, device=device)
+        idx, mask = match_pairs_sharded(descs, valid, pairs, exact=exact, device=where)
         if idx.shape != (len(pairs), F) or mask.shape != (len(pairs), F):
             raise AssertionError(f"sharded matching returned {tuple(idx.shape)}")
 
@@ -75,7 +88,7 @@ def dryrun_multichip(n_devices: int, device: torch.device | str | None = None) -
     out = run_bundle_adjustment_sharded(
         pts + rng.normal(size=pts.shape) * 0.02, poses, np.array([[f, 160, 120, 0, 0, 0, 0]]),
         np.zeros(n_shots, np.int32), obs_p, obs_s, obs_uv, np.ones(len(obs_p)), imask,
-        config=BAConfig(max_iterations=1), device=device)
+        config=BAConfig(max_iterations=1), device=where)
     if not np.isfinite(out["cost"]) or not np.isfinite(out["points"]).all():
         raise AssertionError(f"sharded BA cost {out['cost']}")
 
@@ -93,7 +106,7 @@ def dryrun_multichip(n_devices: int, device: torch.device | str | None = None) -
              "patchmatch": dict(method="patchmatch", pm_iterations=2)}  # kernel K3
     for name, kw in cases.items():
         dmaps, dvalid = compute_depth_maps_sharded(grays, dposes, dintr, nbr_idx, nbr_valid,
-                                                   planes, window_radius=1, device=device, **kw)
+                                                   planes, window_radius=1, device=where, **kw)
         if dmaps.shape != (V, H, W) or not np.isfinite(dmaps).all():
             raise AssertionError(f"sharded {name} depth maps {dmaps.shape}")
 
@@ -106,18 +119,30 @@ def main() -> int:
         process_index,
         shutdown_distributed,
     )
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import make_mesh
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default=None, help="cpu, or the card (default)")
+    ap.add_argument("--device", default=None, help="in one process the mesh, e.g. cuda:0,cuda:1 "
+                    "or cpu,cpu,cpu,cpu (default every visible card); under torchrun cpu, or "
+                    "the rank's card (default)")
     args = ap.parse_args()
-    initialize_distributed(backend="gloo" if args.device == "cpu" else None)
+    kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
+               sgm_kernel.sgm_bidir, pm_kernel.pm_score_rect)
+    # one write a line, as utils/logger.py does
+    if not initialize_distributed(backend="gloo" if args.device == "cpu" else None):
+        mesh = make_mesh(args.device)
+        dryrun_multichip(len(mesh), devices=mesh)
+        for i, dev in enumerate(mesh.devices):
+            sys.stdout.write(f"dryrun device {i} of {len(mesh)} ({dev}): OK; kernel launches "
+                             + ", ".join(f"{k.__name__} {k.by_card.get(dev.index, 0)}"
+                                         for k in kernels) + "\n")
+        sys.stdout.flush()
+        return 0
     try:
         dryrun_multichip(process_count(), args.device)
-        kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
-                   sgm_kernel.sgm_bidir, pm_kernel.pm_score_rect)
         sys.stdout.write(f"dryrun rank {process_index()} of {process_count()}: OK; kernel "
                          "launches " + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)
-                         + "\n")  # one write, as utils/logger.py does
+                         + "\n")
         sys.stdout.flush()
     finally:
         shutdown_distributed()

@@ -1,12 +1,13 @@
-"""Pair-sharded descriptor matching over the process group's ranks.
+"""Pair-sharded descriptor matching over the shards this process holds.
 
 Port of sfm_mvs_pipeline_tpu/parallel/matching.py, the data-parallel axis
 of the SfM frontend (the reference's OMP pair loop,
 UnorderedFeatureMatchingStrategy.cpp:40): the pair list is padded to a
-multiple of the world size with pair (0, 0) and each rank matches one
-contiguous block of it with one launch of kernel K1 (K1x with `exact`);
-descriptors are replicated. An all_gather brings every rank's (P, F)
-outputs back to every rank, trimmed to the real pairs.
+multiple of the shard count with pair (0, 0) and each shard (a card of
+the mesh, or a rank under torchrun) matches one contiguous block of it
+with one launch of kernel K1 (K1x with `exact`); descriptors are
+replicated to each shard's device. The (P, F) outputs are gathered in
+shard order, trimmed to the real pairs.
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sfm_mvs_pipeline_tpu_torch.parallel.distributed import all_gather_cat, check_agree
-from sfm_mvs_pipeline_tpu_torch.parallel.mesh import block, pad_to_multiple, rank_device, world
+from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards, check_agree
 
 
 def match_pairs_sharded(
@@ -28,25 +28,27 @@ def match_pairs_sharded(
     method: str = "bf",
     with_distance: bool = False,
     exact: bool = False,
-    device: torch.device | str | None = None,
+    device=None,
 ) -> tuple[torch.Tensor, ...]:
-    """Match `pairs` across the ranks. Returns (best_idx (P, F) int32,
-    mask (P, F) bool[, best L2 distance (P, F)]) on this rank's device
-    (default: the card), bit-equal to ops/matching.py::match_pairs_batch on
-    the same inputs and identical on every rank. The JAX package's mesh
-    argument is gone (the ranks are the mesh) and so is its `chunk`: each
-    rank's block is one launch."""
+    """Match `pairs` across the shards. Returns (best_idx (P, F) int32,
+    mask (P, F) bool[, best L2 distance (P, F)]), bit-equal to
+    ops/matching.py::match_pairs_batch on the same inputs: on this rank's
+    device under torchrun (the same on every rank), else on the first
+    device of the mesh `device` (the JAX package's mesh: a Mesh or a
+    resolve_devices spec; default every visible card). The JAX package's
+    `chunk` is gone: each shard's block is one launch."""
     from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch
 
-    rank, size = world()
-    dev = rank_device(device)
-    desc = torch.as_tensor(descriptors, device=dev)
-    val = torch.as_tensor(valid, device=dev).bool()
+    shards = Shards(device)
     pairs_np = np.asarray(torch.as_tensor(pairs).cpu(), np.int32).reshape(-1, 2)
-    check_agree("match_pairs_sharded", desc, val, pairs_np)
+    check_agree("match_pairs_sharded", descriptors, valid, pairs_np)
     n_pairs = len(pairs_np)
-    lo, hi = block(n_pairs, rank, size)
-    mine = torch.as_tensor(pad_to_multiple(pairs_np, size)[lo:hi], device=dev)
-    out = match_pairs_batch(desc, val, mine, ratio=ratio, distinct=distinct, backend=backend,
-                            method=method, with_distance=with_distance, exact=exact)
-    return tuple(all_gather_cat(o)[:n_pairs] for o in out)
+
+    def one(sh, desc, val, mine):
+        out = match_pairs_batch(desc, val.bool(), mine, ratio=ratio, distinct=distinct,
+                                backend=backend, method=method, with_distance=with_distance,
+                                exact=exact)
+        return tuple(sh.all_gather_cat(o)[:n_pairs] for o in out)
+
+    return shards.run(one, shards.replicated(descriptors), shards.replicated(valid),
+                      shards.leading(pairs_np))[0]

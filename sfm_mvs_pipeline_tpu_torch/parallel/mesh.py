@@ -1,15 +1,81 @@
-"""Rank helpers: the port's counterpart of the JAX package's device mesh.
+"""The device mesh of one process, and rank helpers.
 
-There is no mesh object. The data axis is the default process group's
-ranks; each rank owns one device (the card initialize_distributed set for
-it, or the CPU), and a sharded function gives each rank one contiguous
-block of its leading axis, as PartitionSpec("data") does.
+Port of sfm_mvs_pipeline_tpu/parallel/mesh.py. The port has two levels of
+parallelism, as the JAX package does: the cards of one host form a Mesh
+that one process drives (make_mesh, shard_leading, replicated: the
+counterparts of the JAX package's make_mesh, NamedSharding(P("data")) and
+NamedSharding(P())), and torchrun's ranks, one card each, split the work
+across processes (world, the default process group). A sharded function
+gives each shard, a card of the mesh or a rank, one contiguous block of
+its leading axis (block), as PartitionSpec("data") does.
+
+The Mesh is a small immutable tuple of torch.device, not
+torch.distributed.DeviceMesh, which needs a process group.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D data mesh over `devices`, in shard order. A device may repeat
+    ("cuda:0,cuda:0": two shards on one card)."""
+
+    devices: tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        object.__setattr__(self, "devices", tuple(torch.device(d) for d in self.devices))
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    @property
+    def first(self) -> torch.device:
+        """The device the mesh's results gather on."""
+        return self.devices[0]
+
+
+def make_mesh(devices=None) -> Mesh:
+    """The mesh over `devices`: a resolve_devices spec (default: every
+    visible card), or an int n, the first n of them."""
+    from sfm_mvs_pipeline_tpu_torch import resolve_devices
+
+    if isinstance(devices, Mesh):
+        return devices
+    if isinstance(devices, int):
+        every = resolve_devices(None)
+        if devices > len(every):
+            raise RuntimeError(f"a mesh of {devices} devices on a machine with {len(every)}")
+        return Mesh(every[:devices])
+    return Mesh(resolve_devices(devices))
+
+
+def shard_leading(mesh: Mesh, x, fill=0) -> list[torch.Tensor]:
+    """x's leading axis padded with `fill` to a multiple of the mesh's size,
+    one contiguous block on each device in mesh order."""
+    t = torch.as_tensor(x)
+    n = len(mesh)
+    lo_hi = [block(t.shape[0], i, n) for i in range(n)]
+    padded = torch.as_tensor(pad_to_multiple(t.cpu().numpy(), n, fill)) if t.shape[0] % n else t
+    return [padded[lo:hi].to(dev) for (lo, hi), dev in zip(lo_hi, mesh.devices)]
+
+
+def replicated(mesh: Mesh, x) -> list[torch.Tensor]:
+    """x on every device of the mesh, in mesh order; one copy a distinct
+    device (shards on one card share it)."""
+    t = torch.as_tensor(x)
+    copies = {}
+    for dev in mesh.devices:
+        if dev not in copies:
+            copies[dev] = t.to(dev)
+    return [copies[dev] for dev in mesh.devices]
 
 
 def world() -> tuple[int, int]:
@@ -21,18 +87,9 @@ def world() -> tuple[int, int]:
     return 0, 1
 
 
-def rank_device(device: torch.device | str | None = None) -> torch.device:
-    """The device this rank computes on: `device` when given, else the card
-    (the current CUDA device, which initialize_distributed set to this
-    rank's; raises without a card)."""
-    from sfm_mvs_pipeline_tpu_torch import resolve_device
-
-    return resolve_device(device)
-
-
 def block(n: int, rank: int, size: int) -> tuple[int, int]:
-    """[lo, hi) of rank's contiguous block of n items padded to a multiple
-    of size (hi may pass n: the padded tail)."""
+    """[lo, hi) of shard `rank`'s contiguous block of n items padded to a
+    multiple of size (hi may pass n: the padded tail)."""
     per = -(-n // size)
     return rank * per, (rank + 1) * per
 

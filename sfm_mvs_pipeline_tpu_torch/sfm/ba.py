@@ -24,11 +24,13 @@ Jacobians come from torch.func.jacfwd, as the JAX package uses jax.jacfwd.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd as _jacfwd
+from torch.func import vmap
 
 from sfm_mvs_pipeline_tpu_torch.models.cameras import (
     distort_normalized,
@@ -37,6 +39,22 @@ from sfm_mvs_pipeline_tpu_torch.models.cameras import (
     reprojection_residuals,
 )
 from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat
+
+# torch's forward-mode AD levels are process-wide, not per thread: the
+# shard threads of a mesh (parallel/ba.py) take their Jacobians one at a
+# time
+_JACFWD_LOCK = threading.Lock()
+
+
+def jacfwd(fn):
+    """torch.func.jacfwd(fn), one call at a time across threads."""
+    jac = _jacfwd(fn)
+
+    def locked(*args):
+        with _JACFWD_LOCK:
+            return jac(*args)
+
+    return locked
 
 # Dense (P, S) grid bound, re-derived for an 80 GB card. Each grid slot
 # holds about 150 live floats during a build: the (2, 16) Jacobian and

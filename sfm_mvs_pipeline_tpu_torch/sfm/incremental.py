@@ -19,7 +19,9 @@ bookkeeping is host numpy (models/scene.py).
 In a process group of more than one rank (torchrun) every rank runs
 reconstruct on the same inputs; matching runs pair-sharded and bundle
 adjustment point-sharded over the ranks (parallel/), each returning the
-same bits to every rank, so the ranks stay in step.
+same bits to every rank, so the ranks stay in step. In one process's mesh
+of several devices matching runs pair-sharded over them and bundle
+adjustment on the first.
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ from sfm_mvs_pipeline_tpu_torch.ops.ransac import resolve_threshold, take
 from sfm_mvs_pipeline_tpu_torch.ops.triangulate import triangulate_pair
 from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
 from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
-from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
 from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig, run_bundle_adjustment
 
 
@@ -119,7 +120,11 @@ class _BogusStart(Exception):
 
 
 # bundle adjustment runs point-sharded in a process group of N > 1 ranks
-# from N times this many live observations (the JAX package's threshold)
+# from N times this many live observations (the JAX package's threshold).
+# A one-process mesh does not shard it: its shards are threads that take
+# turns at the interpreter lock and the jacfwd lock and meet at a barrier
+# for every sum, and on four H100s that made the ORB render's SfM 2.2x
+# slower than one card (PERF.md, Findings).
 _SHARDED_BA_MIN_OBS = 2048
 
 # homography-ratio pairs per batched RANSAC call (bounds the (chunk, K, F)
@@ -154,16 +159,23 @@ def reconstruct(
     log=lambda *a: None,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
+    devices=None,
 ) -> dict:
     """Run incremental SfM on a scene with extracted features.
 
     pairs: (P, 2) candidate pairs from a pair policy. The SfM state runs in
-    `dtype` on `device` (default: the card; raises without one). Mutates
-    `scene` in place; returns a stats dict."""
-    from sfm_mvs_pipeline_tpu_torch import resolve_device
+    `dtype` on the first device of the mesh `devices`, or `device` (give
+    one: a Mesh or a resolve_devices spec; default every visible card;
+    raises without one; under torchrun the rank's card). Matching shards
+    over its devices (or the ranks) past the JAX package's gate; BA shards
+    over torchrun's ranks past its gate, and runs on the first device in a
+    mesh (see _SHARDED_BA_MIN_OBS). Mutates `scene` in place; returns a
+    stats dict."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards
 
     cfg = config or SfMConfig()
-    dev = resolve_device(device)
+    shards = Shards.of_entry(device, devices)
+    dev = shards.first
     S, F = scene.feat_valid.shape
     w_img, h_img = scene.image_size
     max_dim = float(max(w_img, h_img))
@@ -182,10 +194,10 @@ def reconstruct(
     desc_d = torch.as_tensor(scene.descriptors, device=dev,
                              dtype=torch.bfloat16 if cfg.binary_descriptors else torch.float32)
     match = M.match_pairs_batch
-    _, n_ranks = world()
-    if n_ranks > 1 and len(pairs) >= n_ranks:
-        log(f"pair-sharded matching over {n_ranks} ranks")
-        match = functools.partial(match_pairs_sharded, device=dev)
+    n_shards = shards.count
+    if n_shards > 1 and len(pairs) >= n_shards:
+        log(f"pair-sharded matching over {n_shards} {shards.kind}")
+        match = functools.partial(match_pairs_sharded, device=shards.devices)
     midx, mmask, mdist = match(
         desc_d,
         torch.as_tensor(scene.feat_valid, device=dev),
@@ -238,9 +250,9 @@ def reconstruct(
         imask = np.zeros((len(scene.intrinsics), 7))
         imask[:, list(model.opt_mask)] = 1.0
         n_live = max(int((scene.obs_w > 0).sum()), 1)
-        # point-sharded above the JAX package's threshold of 2048 live
-        # observations a rank
-        sharded = n_ranks > 1 and n_live >= _SHARDED_BA_MIN_OBS * n_ranks
+        # point-sharded over torchrun's ranks above the JAX package's
+        # threshold of 2048 live observations a rank (see _SHARDED_BA_MIN_OBS)
+        sharded = shards.ranks and n_live >= _SHARDED_BA_MIN_OBS * n_shards
         out = (run_bundle_adjustment_sharded if sharded else run_bundle_adjustment)(
             scene.points.astype(np.float64),
             scene.poses,
@@ -271,7 +283,7 @@ def reconstruct(
             f"BA #{stats['ba_runs']}: cost {out['cost']:.3g} "
             f"({out['iterations']} iters, rms "
             f"{np.sqrt(2 * out['cost'] / n_live):.3f} px, table {out['table_kind']})"
-            + (f", point-sharded over {n_ranks} ranks" if sharded else "")
+            + (f", point-sharded over {n_shards} {shards.kind}" if sharded else "")
         )
 
     def _full_idx(a, b):

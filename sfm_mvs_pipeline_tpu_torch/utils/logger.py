@@ -4,11 +4,13 @@ Parity with the reference's logger (ref: src/photogrammetrie/util/AppLogger.{h,c
 5 levels TRACE..ERROR, one global level, ANSI colors on ttys (forceable),
 each line carrying elapsed seconds since process start + timestamp +
 component name (AppLogger.cpp:40-94). In a process group of more than one
-rank, each line also carries the rank (set_rank).
+rank, each line also carries the rank (set_rank); a line from a mesh's
+shard thread carries its shard and card (shard_tag).
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import time
@@ -24,6 +26,7 @@ _force_color = False
 _lock = threading.Lock()
 _start = time.time()
 _rank_tag = ""
+_local = threading.local()  # the shard tag of a mesh's shard thread
 
 
 def set_level(level: int) -> None:
@@ -41,6 +44,16 @@ def set_rank(rank: int, world_size: int) -> None:
     _rank_tag = f" r{rank}/{world_size}" if world_size > 1 else ""
 
 
+@contextlib.contextmanager
+def shard_tag(index: int, count: int, device):
+    """Tag the calling thread's lines with "c<index>/<count> <device>"."""
+    _local.tag = f" c{index}/{count} {device}"
+    try:
+        yield
+    finally:
+        _local.tag = ""
+
+
 def set_force_color(force: bool) -> None:
     global _force_color
     _force_color = bool(force)
@@ -56,7 +69,8 @@ class AppLogger:
         use_color = _force_color or sys.stdout.isatty()
         elapsed = time.time() - _start
         ts = datetime.now().strftime("%H:%M:%S")
-        line = f"[{elapsed:8.1f}s {ts} {_NAMES[level]:5s} {self.component}{_rank_tag}] {msg}"
+        tag = _rank_tag + getattr(_local, "tag", "")
+        line = f"[{elapsed:8.1f}s {ts} {_NAMES[level]:5s} {self.component}{tag}] {msg}"
         if use_color:
             line = _COLORS[level] + line + _RESET
         # one write a line: the ranks under torchrun share an unbuffered

@@ -18,6 +18,8 @@ two-plane render at 120x160. Tolerances, each with its reason:
     kernel on a bf16-exact grid (the tests/test_mvs.py bounds).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -264,3 +266,34 @@ def test_mesh_texture_refine(scene):
     rj = JRF.refine_mesh_photometric(V, Fc, poses, intr, grays)
     same = np.all(np.abs(rt - rj) <= 1e-4, axis=1)
     assert same.mean() >= 0.99, same.mean()
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.02], ids=["exact", "noisy"])
+def test_mesh_steps_match_jax(scene, noise):
+    """mesh_from_depth_maps step by step against the JAX package on the same
+    depth maps: faces after back-projection, cluster_vertices,
+    remove_small_components, close_holes and smoothing all equal, on the
+    scene's exact depth and on depth with PatchMatch-like noise (2% of
+    depth, 10% of the pixels invalid), where clustering keeps more faces.
+    The noisy case is the one that settles where a PatchMatch mesh's
+    extra faces come from (tests/dense_counts.py has the CLI's counts)."""
+    from sfm_mvs_pipeline_tpu.mvs import mesh as JM
+    from sfm_mvs_pipeline_tpu_torch.mvs import mesh as TM
+    from tests.dense_counts import _jax_mesh_steps_logged
+
+    grays, gt, poses, intr = scene
+    rng = np.random.default_rng(7)
+    depth = (gt * (1 + noise * rng.standard_normal(gt.shape))).astype(np.float32)
+    valids = rng.random(gt.shape) > (0.1 if noise else 0.0)
+    logs = {"port": [], "jax": []}
+    TM.mesh_from_depth_maps(depth, valids, poses, intr, device="cpu", log=logs["port"].append)
+    with _jax_mesh_steps_logged(logs["jax"].append):
+        JM.mesh_from_depth_maps(depth, valids, poses, intr, log=logs["jax"].append)
+    steps = ["raw mesh", "clustered", "small components removed", "holes closed", "cleaned"]
+
+    def faces(lines):
+        return {k: next(int(m.group(1)) for ln in lines
+                        if (m := re.search(re.escape(k) + r": \d+ verts, (\d+) faces", ln)))
+                for k in steps}
+
+    assert faces(logs["port"]) == faces(logs["jax"])
