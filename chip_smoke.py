@@ -89,8 +89,9 @@ the CPU. Phases, each timed and each fatal on failure:
      count, extent and occupied 64-slot tiles logged, the inputs saved for
      --k1x-timing.
 
- 15. the multi-device paths on torch.distributed, both ranks on this one
-     card: (b) the 1080p render through the CLI under torchrun at world 2
+ 15. the multi-device paths on torch.distributed, both ranks on card 0
+     (the subprocesses are shown card 0 only, on a host of several cards
+     too): (b) the 1080p render through the CLI under torchrun at world 2
      (gloo: the ranks share the card) with phase 7's flags and --artifacts,
      after parallel/dryrun.py at world 2 from an emptied kernel build dir
      (both ranks build every kernel at once); phase 4's
@@ -99,8 +100,8 @@ the CPU. Phases, each timed and each fatal on failure:
      each, only rank 0 writing, and the depth maps bit-equal to a world-1
      run resumed from the run's scene.npz; (c) the same scene at world 2
      with -Pdense-method=patchmatch: K3 on each rank, phase 10's limit,
-     depth maps bit-equal to world 1; (a) in a one-rank nccl group,
-     match_pairs_sharded (fast and exact), run_bundle_adjustment_sharded
+     depth maps bit-equal to world 1; (a) in a one-rank nccl group
+     (SHARDED_FUNCS, as phase 18's functions), match_pairs_sharded (fast and exact), run_bundle_adjustment_sharded
      and compute_depth_maps_sharded (rect --sgm and PatchMatch) on that
      scene, each bit-equal to the one-rank function on the same inputs.
      Each rank's walls, stage split and time in collectives are printed
@@ -154,14 +155,41 @@ the CPU. Phases, each timed and each fatal on failure:
      shard thread (utils/stage_timer.py). Every count is zeroed just before a run and read
      just after; each card's launches of each kernel are printed, and each
      kernel of a run must have launched on every card with work.
-Phases 7, 10, 13, 14, 15, 16 and 17 share one render in a temporary work
+ 18. ranks by cards: torchrun ranks that each hold several devices, 4
+     shards in rank-major order (global shard rank x 2 + device), the
+     counterpart of the JAX package's process x local-device mesh. 18a
+     (fewer than four cards, so in the default run on one card): 2 gloo
+     ranks, each -Pdevice=cuda:0,cuda:0 (the subprocesses see card 0
+     only): parallel/dryrun.py from an emptied kernel build dir (both
+     ranks build every kernel at once; K1, K1x, K2a, K3 on each rank's
+     card), insel with phase 6's flags (3 views for 4 shards, 3 pairs:
+     matching unsharded; K2a; rank 0 alone writing) held to a world-1 run
+     resumed from its scene.npz (depth maps bit-equal, dense files
+     identical), then on phase 7's scene.npz (or, run alone, a sparse
+     world-1 run of the render) the sharded matcher (fast and exact) and
+     depth maps (rect --sgm, PatchMatch) bit-equal to one device (K1, K1x,
+     K2b, K3). 18b (four cards; `--phases 18` on a four-card machine): 2
+     nccl ranks, each its block of two cards (-Pdevice=cuda: cards 0-1 and
+     2-3, four distinct UUIDs checked): the dryrun from an emptied build
+     dir; the render with phase 7's flags; on its scene sharded BA
+     (float64, within phase 16's world-4 tolerance of one card), the
+     matcher and the depth maps; PatchMatch resumed under -Pprofile= (each
+     card's kernels on one time axis, from both ranks' traces); exact; ORB
+     at -Pfeature-limit=8192; insel --sgm (card 3 computes none). The
+     limits of phases 4, 7, 10, 13 and 14; depth maps bit-equal and dense
+     files identical to world 1 on card 0; every kernel of a run launched
+     on every card with work (each rank logs its launches by card). Each
+     rank's wall and stage split are printed, and at the end of the call
+     each wall beside phase 16's (4 ranks x 1 card) and 17b's (1 process x
+     4 cards) where they ran. Phase 18 runs before phases 16 and 17.
+Phases 7, 10, 13, 14, 15, 16, 17 and 18 share one render in a temporary work
 dir. Every in-process run that names no devices takes card 0 alone
 (-Pdevice=cuda:0): the CLI's default, every visible card, would shard.
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. A run of some
 phases only prints no result line; it exits 0 when they pass.
 
-Usage: python3 chip_smoke.py [--phases 1,2,...,17]
+Usage: python3 chip_smoke.py [--phases 1,2,...,18]
        python3 chip_smoke.py --k1x-timing ROOT [--k1x-inputs NPZ]
 The second form only times K1x of the checkout at ROOT (k1x_timing), so two
 checkouts compare in one call: parent, change, change, parent.
@@ -196,9 +224,10 @@ K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
 K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
 K1X_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_exact_kernel.cu"
 K1X_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:88"
-ALL_PHASES = set(range(1, 16)) | {17}  # a full run holds them all
+ALL_PHASES = set(range(1, 16)) | {17, 18}  # a full run holds them all
 FOUR_CARD_PHASE = 16  # in the default run only on a machine with four cards
 MESH_PHASE = 17  # 17a on a machine with fewer than four cards, else 17b
+RBC_PHASE = 18  # 18a on a machine with fewer than four cards, else 18b
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"fp32": 67e12, "bf16": 989e12}
@@ -222,7 +251,13 @@ def card_line() -> str:
 
 
 def say(card: str, msg: str) -> None:
-    print(f"[{card}] {msg}", flush=True)
+    """Print a result line, and append it to chiprun_out/chip_smoke.log:
+    a long run's output can outgrow what comes back of it."""
+    line = f"[{card}] {msg}"
+    print(line, flush=True)
+    os.makedirs(LOG_DIR, exist_ok=True)
+    with open(os.path.join(LOG_DIR, "chip_smoke.log"), "a") as f:
+        f.write(line + "\n")
 
 
 def run_cli(argv: list[str], log_name: str) -> tuple[int, str, float]:
@@ -1523,14 +1558,20 @@ def k1x_timing(root: str, inputs: str | None) -> int:
 # the world-1 walls phase 15 prints its runs beside (phases 4, 7, 10)
 WORLD1_WALLS: dict[str, float] = {}
 
-# 15a: the sharded functions in a one-rank nccl group on the card, each held
-# bit for bit to the one-rank function on the same inputs (the render's
-# scene from 15b: its descriptors, its BA problem, its 1080p views): the
-# matcher and BA to match_pairs_batch and run_bundle_adjustment, the depth
-# maps to mvs/pipeline.py::depth_map_view called for each view in a plain
-# loop outside the group. Then the entry digest check timed on ORB's 1080p
-# descriptor shape, against hashing the bytes on the host.
-NCCL_WORLD1 = r"""
+# 15a and 18: the sharded functions under torchrun on a run's scene
+# (argv[1]) over the ranks' devices (argv[2]): the matcher (fast and exact),
+# the depth maps (rect --sgm and PatchMatch on the scene's views) and, by
+# argv[3], point-sharded BA ("bit": the default dtype, held bit for bit;
+# "f64": float64, within BA_WORLD4_COST_REL / BA_WORLD4_ATOL with the same
+# iterations; "-": none), every kernel's counts zeroed just before and read
+# just after. Rank 0 then holds each to the one-device function on its
+# first device: the matcher to match_pairs_batch, BA to
+# run_bundle_adjustment, the depth maps to mvs/pipeline.py::depth_map_view
+# called for each view in a plain loop outside the group. With argv[4]
+# "digest", rank 0 also times the entry digest check on ORB's 1080p
+# descriptor shape against hashing the bytes on the host. Prints
+# "FUNCS_REPORT {json}" from every rank.
+SHARDED_FUNCS = r"""
 import hashlib, json, sys, time
 import cv2
 import numpy as np
@@ -1541,7 +1582,7 @@ from sfm_mvs_pipeline_tpu_torch.mvs.neighbors import depth_range, select_neighbo
 from sfm_mvs_pipeline_tpu_torch.mvs.pipeline import MVSConfig, _undistort_image, depth_map_view
 from sfm_mvs_pipeline_tpu_torch.mvs.plane_sweep import make_depth_planes
 from sfm_mvs_pipeline_tpu_torch.mvs.rectified import derive_max_disp
-from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
+from sfm_mvs_pipeline_tpu_torch.ops.kernels import build, match_kernel, pm_kernel, sgm_kernel
 from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch
 from sfm_mvs_pipeline_tpu_torch.ops.pairs import unordered_pairs
 from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
@@ -1553,14 +1594,15 @@ from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
 from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
 from sfm_mvs_pipeline_tpu_torch.utils.images import load_rgb
 
-D.initialize_distributed()
-backend = dist.get_backend()
-dev = torch.device("cuda")
-scene = load_scene(sys.argv[1])
-S = scene.n_shots
+scene_npz, devices, ba_mode, with_digest = sys.argv[1:5]
+D.initialize_distributed(backend="gloo" if devices.startswith("cpu") else None)
+rank, backend = dist.get_rank(), dist.get_backend()
+shards = D.Shards(devices)
+dev = shards.first
+scene = load_scene(scene_npz)
 desc = torch.as_tensor(scene.descriptors, device=dev)
 valid = torch.as_tensor(scene.feat_valid, device=dev)
-pairs = torch.as_tensor(unordered_pairs(S), device=dev)
+pairs = torch.as_tensor(unordered_pairs(scene.n_shots), device=dev)
 imask = np.zeros((len(scene.intrinsics), 7))
 imask[:, list(CAMERA_MODELS[scene.camera_model].opt_mask)] = 1.0
 # the run's points moved off their optimum (1 mm at a ~10 m depth), so
@@ -1569,7 +1611,8 @@ points = scene.points + np.random.default_rng(0).normal(size=scene.points.shape)
 ba_args = (points, scene.poses, scene.intrinsics, scene.cam_of_shot,
            scene.obs_point, scene.obs_shot, scene.obs_uv.astype(np.float64),
            scene.obs_w.astype(np.float64), imask)
-ba_kw = dict(pose_free=scene.recovered.astype(np.float64), device=dev)
+ba_kw = dict(pose_free=scene.recovered.astype(np.float64),
+             **({"dtype": torch.float64} if ba_mode == "f64" else {}))
 rec = [int(s) for s in np.nonzero(scene.recovered)[0]]
 w, h = scene.image_size
 intr = scene.intrinsics[0].copy()
@@ -1606,20 +1649,35 @@ def depth_per_view(method, use_sgm=False, max_disp=256):
     return [depth, valid]
 
 
+def sync():
+    for d in {d for d in shards.devices if d.type == "cuda"}:
+        torch.cuda.synchronize(d)
+
+
 def run(sharded):
-    match = ((lambda *a, **k: match_pairs_sharded(*a, device=dev, **k)) if sharded
-             else match_pairs_batch)
-    out = {f"match_{x}": [t.cpu().numpy() for t in match(desc, valid, pairs, with_distance=True,
-                                                         exact=x == "exact")]
-           for x in ("fast", "exact")}
-    ba = (run_bundle_adjustment_sharded if sharded else run_bundle_adjustment)(*ba_args, **ba_kw)
-    out["ba"] = [ba[k] for k in ("points", "poses", "intrinsics")] + [np.array(ba["cost"])]
-    out["ba_iterations"] = ba["iterations"]
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    for x in ("fast", "exact"):
+        res = (match_pairs_sharded(desc, valid, pairs, with_distance=True, exact=x == "exact",
+                                   device=devices) if sharded else
+               match_pairs_batch(desc, valid, pairs, with_distance=True, exact=x == "exact"))
+        out["match_" + x] = [t.cpu().numpy() for t in res]
+    sync()
+    walls["match"] = time.perf_counter() - t0
     for name, kw in dm_kw.items():
+        t0 = time.perf_counter()
         out["depth_" + name] = (list(compute_depth_maps_sharded(
-            grays, poses, intr, nbr_idx, nbr_valid, planes, device=dev, **kw)) if sharded
+            grays, poses, intr, nbr_idx, nbr_valid, planes, device=devices, **kw)) if sharded
             else depth_per_view(**kw))
-    return out
+        sync()
+        walls["depth_" + name] = time.perf_counter() - t0
+    if ba_mode != "-":
+        t0 = time.perf_counter()
+        out["ba"] = (run_bundle_adjustment_sharded(*ba_args, device=devices, **ba_kw) if sharded
+                     else run_bundle_adjustment(*ba_args, device=dev, **ba_kw))
+        sync()
+        walls["ba"] = time.perf_counter() - t0
+    return out, walls
 
 
 def time_digest():
@@ -1634,36 +1692,50 @@ def time_digest():
                          digest_size=8).digest())):
         ts = []
         for _ in range(3):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync()
             ts.append((time.perf_counter() - t0) * 1e3)
         ms[name] = sorted(ts)[1]
     return {"shape": list(x.shape), "MB": x.numel() * 2 / 1e6, "ms": ms}
 
 
-for k in kernels:
-    k.launches = 0
+build.reset_launches(*kernels)
 stage_timer.enable()
 t0 = time.perf_counter()
-sharded = run(True)
-torch.cuda.synchronize()
+sharded, walls = run(True)
 wall = time.perf_counter() - t0
 split = stage_timer.report()
-launches = {k.__name__: k.launches for k in kernels}
 D.shutdown_distributed()
 stage_timer.enable(False)
-ref = run(False)
-equal = {k: all(np.array_equal(a, b) for a, b in zip(sharded[k], ref[k]))
-         for k in sharded if k != "ba_iterations"}
-equal["ba_iterations"] = sharded["ba_iterations"] == ref["ba_iterations"]
-print(json.dumps({"backend": backend, "equal": equal, "launches": launches,
-                  "digest": time_digest(),
-                  "ba_iterations": ref["ba_iterations"], "max_disp": int(md),
-                  "views": len(rec), "wall_s": wall,
-                  "collectives": {k: v for k, v in split.items() if k.startswith("collective")}}),
-      flush=True)
+report = {"rank": rank, "backend": backend, "kind": shards.kind, "held": shards.held,
+          "devices": [str(d) for d in shards.devices], "wall_s": wall, "walls_s": walls,
+          "launches": {k.__name__: k.launches for k in kernels},
+          "by_card": {k.__name__: dict(sorted(k.by_card.items())) for k in kernels},
+          "collectives": {k: v for k, v in split.items() if k.startswith("collective")}}
+if rank == 0:
+    ref, ref_walls = run(False)
+    report.update(views=len(rec), max_disp=int(md), ref_walls_s=ref_walls)
+    report["equal"] = {k: all(np.array_equal(a, b) for a, b in zip(sharded[k], ref[k]))
+                       for k in sharded if k != "ba"}
+    if ba_mode != "-":
+        got, one = sharded["ba"], ref["ba"]
+        fields = ("points", "poses", "intrinsics")
+        if ba_mode == "bit":
+            report["equal"]["ba"] = all(np.array_equal(got[k], one[k]) for k in fields + ("cost",))
+            report["equal"]["ba_iterations"] = got["iterations"] == one["iterations"]
+        report["ba"] = {
+            "dtype": "float64" if ba_mode == "f64" else "the default",
+            "observations": int((scene.obs_w > 0).sum()), "cost": float(got["cost"]),
+            "ref_cost": float(one["cost"]),
+            "rel": abs(float(got["cost"]) - float(one["cost"])) / abs(float(one["cost"])),
+            "iterations": int(got["iterations"]), "ref_iterations": int(one["iterations"]),
+            "max_abs": {k: float(np.abs(np.asarray(got[k], np.float64)
+                                        - np.asarray(one[k], np.float64)).max()) for k in fields}}
+    if with_digest == "digest":
+        report["digest"] = time_digest()
+print("FUNCS_REPORT " + json.dumps(report), flush=True)
 """
 
 
@@ -1690,15 +1762,17 @@ def run_ranks(cmd: list[str], env: dict, timeout: float) -> subprocess.Completed
     return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
 
 
-def torchrun_cli(argv: list[str], world: int, log_name: str, timeout: float) -> tuple[str, float]:
-    """The port's CLI under torchrun at `world` ranks, with --stage-times;
-    the ranks' backend follows the port's rule (gloo when ranks share a
-    card, nccl when each has its own). Returns (the ranks' merged output,
-    wall s); raises on a non-zero exit or after `timeout` s."""
+def torchrun_cli(argv: list[str], world: int, log_name: str, timeout: float,
+                 env: dict | None = None) -> tuple[str, float]:
+    """The port's CLI under torchrun at `world` ranks, with --stage-times
+    (and `env` added to the ranks' environment); the ranks' backend follows
+    the port's rule (gloo when ranks share a card, nccl when each has its
+    own). Returns (the ranks' merged output, wall s); raises on a non-zero
+    exit or after `timeout` s."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={world}", "-m", "sfm_mvs_pipeline_tpu_torch", *argv, "--stage-times"]
-    env = dict(os.environ, PYTHONPATH=ROOT,
-               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or world) // world)))
+    env = {**os.environ, "PYTHONPATH": ROOT,
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or world) // world)), **(env or {})}
     t0 = time.perf_counter()
     res = run_ranks(cmd, env, timeout)
     wall = time.perf_counter() - t0
@@ -1760,19 +1834,21 @@ def empty_kernel_builds() -> None:
             os.unlink(path)
 
 
-def dryrun_at(card: str, world: int) -> tuple[str, float]:
-    """parallel/dryrun.py at `world` ranks under torchrun, the backend by the
-    port's rule (gloo when ranks share a card, nccl when each has its own),
-    from an emptied kernel build dir: every rank builds K1, K1x, K2 and K3
-    at once (build.py writes a temporary file and renames it). Returns
-    (the ranks' output, wall s)."""
+def dryrun_at(card: str, world: int, args: tuple = (), env: dict | None = None,
+              tag: str = "") -> tuple[str, float]:
+    """parallel/dryrun.py at `world` ranks under torchrun (with `args`, and
+    `env` added to the ranks' environment), the backend by the port's rule
+    (gloo when ranks share a card, nccl when each has its own), from an
+    emptied kernel build dir: every rank builds K1, K1x, K2 and K3 at once
+    (build.py writes a temporary file and renames it). Returns (the ranks'
+    output, wall s)."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={world}", "-m", "sfm_mvs_pipeline_tpu_torch.parallel.dryrun"]
+           f"--nproc-per-node={world}", "-m", "sfm_mvs_pipeline_tpu_torch.parallel.dryrun", *args]
     empty_kernel_builds()
     t0 = time.perf_counter()
-    res = run_ranks(cmd, dict(os.environ, PYTHONPATH=ROOT), 300)
+    res = run_ranks(cmd, {**os.environ, "PYTHONPATH": ROOT, **(env or {})}, 300)
     wall = time.perf_counter() - t0
-    with open(os.path.join(LOG_DIR, f"chip_smoke_dryrun_world{world}.log"), "w") as f:
+    with open(os.path.join(LOG_DIR, f"chip_smoke_dryrun_world{world}{tag}.log"), "w") as f:
         f.write(res.stdout + res.stderr)
     ok = [f"dryrun rank {r} of {world}: OK" in res.stdout for r in range(world)]
     if res.returncode != 0 or not all(ok):
@@ -1794,17 +1870,19 @@ def phase_world2(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> 
     bit-equal to a world-1 run resumed from the run's scene.npz.
     15c: the same at world 2 resumed from that scene.npz with PatchMatch:
     K3 launched on each rank, phase 10's limit, depth maps bit-equal to a
-    world-1 PatchMatch run from the same scene.npz. Returns each rank's
-    launches."""
+    world-1 PatchMatch run from the same scene.npz. The ranks see card 0
+    only, so on a host of several cards too they share it on gloo. Returns
+    each rank's launches."""
     import torch
 
     torch.cuda.empty_cache()
     data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
-    dryrun_at(card, 2)
+    one_card = visible_cards(1)
+    dryrun_at(card, 2, env=one_card)
     out2 = os.path.join(work, "out-w2")
     argv = ["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out2}", "-Pfeature-limit=0",
             "--dense", "--sgm", "--mesh", "--colored", "--stats", "--artifacts"]
-    log, wall = torchrun_cli(argv, 2, "chip_smoke_world2.log", 900)
+    log, wall = torchrun_cli(argv, 2, "chip_smoke_world2.log", 900, one_card)
     reports = rank_report(log, 2)
     scene, med = check_outputs(out2)
     rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
@@ -1856,7 +1934,7 @@ def phase_world2(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> 
     argv = ["-Prun=photogrammetrie", f"-Presume={out2}/scene.npz", f"-Pout={out3}",
             "-Pdense-method=patchmatch", "--dense", "--mesh", "--colored", "--stats",
             "--artifacts"]
-    log_pm, wall_pm = torchrun_cli(argv, 2, "chip_smoke_world2_pm.log", 600)
+    log_pm, wall_pm = torchrun_cli(argv, 2, "chip_smoke_world2_pm.log", 600, one_card)
     reports_pm = rank_report(log_pm, 2)
     share_pm, n_pm = dense_accuracy(out3, gt_R, gt_C)
     say(card, f"world 2 PatchMatch: {n_pm} dense points, {share_pm:.4%} within 1% of depth "
@@ -1879,36 +1957,100 @@ def phase_world2(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> 
             "patchmatch": [rp["launches"] for rp in reports_pm]}
 
 
-def phase_nccl_world1(card: str, work: str) -> dict:
-    """15a: NCCL_WORLD1 in a one-rank nccl group (a subprocess with
-    torchrun's environment) on 15b's scene.npz. Returns the sharded calls'
-    kernel launches."""
-    env = dict(os.environ, PYTHONPATH=ROOT, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
-    res = subprocess.run([sys.executable, "-c", NCCL_WORLD1,
-                          os.path.join(work, "out-w2", "scene.npz")],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    with open(os.path.join(LOG_DIR, "chip_smoke_nccl_world1.log"), "w") as f:
+def visible_cards(n: int) -> dict:
+    """The environment that shows a subprocess the first n cards this
+    process sees (none on the CPU)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return {}
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = seen.split(",") if seen else [str(i) for i in range(torch.cuda.device_count())]
+    return {"CUDA_VISIBLE_DEVICES": ",".join(ids[:n])}
+
+
+def by_card_counts(text: str) -> dict:
+    """{kernel: {card: n}} from a "kernel launches by card" list such as
+    "two_nn_batch_fused 0:1/1:1, sgm_hpair 0:15/1:15"."""
+    return {name: {int(c): int(n) for c, n in re.findall(r"(\d+):(\d+)", counts)}
+            for name, counts in re.findall(r"(\w+) ([\d:/]*)", text)}
+
+
+def sharded_functions(card: str, label: str, scene_npz: str, devices: str, world: int,
+                      env: dict, backend: str, ba: str, digest: bool = False) -> list[dict]:
+    """SHARDED_FUNCS under torchrun at `world` ranks (`env` added to their
+    environment), each rank on `devices`, on a run's scene: `backend` by
+    the port's rule, the matcher and depth maps (and BA with ba "bit")
+    bit-equal to one device, BA "f64" within the world-4 tolerance, every
+    kernel launched on every card of every rank. Returns each rank's
+    report."""
+    script = os.path.join(os.path.dirname(scene_npz), "sharded_functions.py")
+    with open(script, "w") as f:
+        f.write(SHARDED_FUNCS)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", script, scene_npz, devices, ba,
+           "digest" if digest else "-"]
+    t0 = time.perf_counter()
+    res = run_ranks(cmd, {**os.environ, "PYTHONPATH": ROOT, **env}, 600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(LOG_DIR, f"chip_smoke_{label.split()[0]}_functions.log"), "w") as f:
         f.write(res.stdout + res.stderr)
     if res.returncode != 0:
-        raise AssertionError(f"world-1 nccl run exited {res.returncode}:\n"
+        raise AssertionError(f"{label} exited {res.returncode}:\n"
                              f"{(res.stdout + res.stderr)[-3000:]}")
-    r = json.loads(res.stdout.strip().splitlines()[-1])
-    say(card, f"world 1 ({r['backend']}): sharded functions on {r['views']} 1080p views, "
-              f"bit-equal to the one-rank functions: {r['equal']}; BA {r['ba_iterations']} "
-              f"iterations, rect max_disp {r['max_disp']}; launches {r['launches']}; sharded "
-              f"wall {r['wall_s']:.2f} s, collectives "
-              + "; ".join(f"{k} {t:.4f} s x{n}" for k, (t, n) in r["collectives"].items()))
-    dg = r["digest"]
-    say(card, f"entry digest of {tuple(dg['shape'])} bf16 ({dg['MB']:.1f} MB) on the card: "
-              f"device fingerprint {dg['ms']['device_fingerprint']:.3f} ms, host bytes + "
-              f"blake2b {dg['ms']['host_bytes']:.3f} ms (median of 3)")
-    if r["backend"] != "nccl":
-        raise AssertionError(f"world 1 ran on {r['backend']}, not nccl")
-    if not all(r["equal"].values()):
-        raise AssertionError(f"world 1 nccl: not bit-equal: {r['equal']}")
-    if not all(n > 0 for n in r["launches"].values()):
-        raise AssertionError(f"world 1 nccl: a kernel was not launched: {r['launches']}")
+    reports = sorted((json.loads(ln.split("FUNCS_REPORT ", 1)[1])
+                      for ln in res.stdout.splitlines() if ln.startswith("FUNCS_REPORT ")),
+                     key=lambda r: r["rank"])
+    if len(reports) != world:
+        raise AssertionError(f"{label}: {len(reports)} reports of {world} ranks")
+    r0 = reports[0]
+    say(card, f"{label} ({r0['backend']}, {r0['kind']}) in {wall:.2f} s on {r0['views']} views "
+              f"(rect max_disp {r0['max_disp']}): bit-equal to one device {r0['equal']}; walls "
+              + "; ".join(f"rank {r['rank']} {r['devices']} "
+                          + ", ".join(f"{k} {v:.3f} s" for k, v in r["walls_s"].items())
+                          for r in reports)
+              + "; one device " + ", ".join(f"{k} {v:.3f} s" for k, v in r0["ref_walls_s"].items()))
+    for r in reports:
+        say(card, f"{label} rank {r['rank']}: launches {r['launches']}, by card "
+                  + per_card({k: {int(c): n for c, n in v.items()} for k, v in r["by_card"].items()})
+                  + "; collectives " + "; ".join(f"{k.split(' ', 1)[1]} {t:.4f} s x{n}"
+                                                 for k, (t, n) in r["collectives"].items()))
+    if r0["backend"] != backend:
+        raise AssertionError(f"{label} ran on {r0['backend']}, not {backend}")
+    if not all(r0["equal"].values()):
+        raise AssertionError(f"{label}: not bit-equal to one device: {r0['equal']}")
+    if "ba" in r0:
+        b = r0["ba"]
+        say(card, f"{label}: sharded BA ({b['dtype']} dtype, {b['observations']} observations) "
+                  f"cost {b['cost']!r} vs one device {b['ref_cost']!r} (rel {b['rel']:.3e}), "
+                  f"{b['iterations']} iterations vs {b['ref_iterations']}, max |d| "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in b["max_abs"].items())
+                  + (f" (limits rel {BA_WORLD4_COST_REL:g}, |d| {BA_WORLD4_ATOL:g})"
+                     if ba == "f64" else " (held bit for bit)"))
+        if ba == "f64" and not (b["rel"] <= BA_WORLD4_COST_REL
+                                and b["iterations"] == b["ref_iterations"]
+                                and max(b["max_abs"].values()) <= BA_WORLD4_ATOL):
+            raise AssertionError(f"{label}: sharded BA outside the world-4 tolerance: {b}")
+    if digest:
+        dg = r0["digest"]
+        say(card, f"entry digest of {tuple(dg['shape'])} bf16 ({dg['MB']:.1f} MB) on the card: "
+                  f"device fingerprint {dg['ms']['device_fingerprint']:.3f} ms, host bytes + "
+                  f"blake2b {dg['ms']['host_bytes']:.3f} ms (median of 3)")
+    cards = [sorted({int(d.split(":")[1]) for d in r["devices"] if d.startswith("cuda")})
+             for r in reports]
+    check_card_launches(label, [{k: {int(c): n for c, n in v.items()}
+                                 for k, v in r["by_card"].items()} for r in reports], cards,
+                        ["two_nn_batch_fused", "two_nn_exact_batch", "sgm_hpair", "sgm_dir_acc",
+                         "pm_score_rect"])
+    return reports
+
+
+def phase_nccl_world1(card: str, work: str) -> dict:
+    """15a: SHARDED_FUNCS in a one-rank nccl group on card 0, on 15b's
+    scene.npz, BA in the default dtype held bit for bit, and the entry
+    digest timed. Returns the sharded calls' kernel launches."""
+    r = sharded_functions(card, "15a world 1", os.path.join(work, "out-w2", "scene.npz"), "cuda",
+                          1, visible_cards(1), "nccl", "bit", digest=True)[0]
     return r["launches"]
 
 
@@ -2029,13 +2171,13 @@ def world4_run(card: str, label: str, argv: list[str], log_name: str, timeout: f
 
 
 def rank0_alone_finished(label: str, log: str, reports: list[dict], dense: bool,
-                         stats: bool = True) -> None:
+                         stats: bool = True, world: int = WORLD4) -> None:
     """Only rank 0 wrote: it alone logs the statistics it writes with
     --stats (a run from images) and, in a dense run, the dense cloud it
-    fused; and only rank 0 fused, meshed and textured: ranks 1-3 stop after
+    fused; and only rank 0 fused, meshed and textured: ranks > 0 stop after
     the depth-map gather."""
     for what in ["reprojection error"] * stats + ["fused dense cloud"] * dense:
-        if f"r0/4] {what}" not in log or re.search(rf"r[123]/4\] {what}", log):
+        if f"r0/{world}] {what}" not in log or re.search(rf"r[1-9]\d*/{world}\] {what}", log):
             raise AssertionError(f"{label}: {what!r} was not logged by rank 0 alone")
     if not dense:
         return
@@ -2270,6 +2412,11 @@ def world4_ba(card: str, scene_npz: str) -> dict:
 # the mesh of one process: 17a two shards on card 0, 17b the four cards
 
 
+# phase 17's one-process walls by run label ("17b --sgm", ...), which phase
+# 18b prints its walls beside
+MESH_WALLS: dict[str, float] = {}
+
+
 def kernel_wrappers() -> tuple:
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
@@ -2312,6 +2459,7 @@ def mesh_run(card: str, label: str, argv: list[str], log_name: str, devices: str
         stage_timer.enable(False)
     if rc != 0:
         raise AssertionError(f"{label}: the CLI exited {rc}")
+    MESH_WALLS[label] = wall
     by_card = {k.__name__: dict(sorted(k.by_card.items())) for k in wrappers}
     say(card, f"{label}: stages " + "; ".join(f"{k} {t:.3f} s x{n}" for k, (t, n) in split.items()))
     say(card, f"{label}: kernel launches per card " + per_card(by_card))
@@ -2432,20 +2580,24 @@ def mesh_functions(card: str, label: str, scene_npz: str, devices: str) -> dict:
     return launches
 
 
-def card_busy(trace_path: str) -> dict:
-    """Each card's kernels in a torch.profiler Chrome trace on one time
+def card_busy(*trace_paths: str) -> dict:
+    """Each card's kernels in torch.profiler Chrome traces (one a process,
+    each placed on the host's clock by its baseTimeNanoseconds) on one time
     axis: {"cards": {card: (first start s, last end s, busy s)} from the
-    first kernel of the trace, "overlap_s": the time two or more cards
+    first kernel of the traces, "overlap_s": the time two or more cards
     were busy at once}."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
     spans: dict[int, list] = {}
-    for ev in events:
-        if ev.get("cat") == "kernel" and "dur" in ev:
-            spans.setdefault(int(ev["args"]["device"]), []).append(
-                (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+    for path in trace_paths:
+        with open(path) as f:
+            trace = json.load(f)
+        base = float(trace.get("baseTimeNanoseconds", 0)) / 1e3  # us, as ts
+        for ev in trace["traceEvents"]:
+            if ev.get("cat") == "kernel" and "dur" in ev:
+                t = float(ev["ts"]) + base
+                spans.setdefault(int(ev["args"]["device"]), []).append(
+                    (t, t + float(ev["dur"])))
     if not spans:
-        raise AssertionError(f"no kernel events in {trace_path}")
+        raise AssertionError(f"no kernel events in {trace_paths}")
     t0 = min(a for sp in spans.values() for a, _ in sp)
     cards, edges = {}, []
     for c, sp in sorted(spans.items()):
@@ -2634,9 +2786,321 @@ def phase_mesh_four_cards(card: str, work: str, n_views=12, h=1080, w=1920, f=16
 
 
 
+# ------------------------------------------------------------- phase 18
+# ranks by cards: torchrun ranks that each hold several devices, world x L
+# shards in rank-major order (18a: 2 gloo ranks, each cuda:0,cuda:0 on one
+# card; 18b: 2 nccl ranks, each its block of two of four cards)
+RBC_WORLD = 2
+
+# phase 18's torchrun walls and each rank's report (rank_report) by run
+# label ("18b --sgm", ...); 18b's are printed at the end of a call beside
+# phase 16's (TORCHRUN_WALLS) and 17b's (MESH_WALLS)
+RBC_WALLS: dict[str, tuple] = {}
+# 18b's runs and their counterparts: phase 16's run and phase 17b's label
+RBC_BESIDE = {"--sgm": ("I-2", "17b --sgm"), "PatchMatch": ("I-3", "17b PatchMatch"),
+              "exact": ("I-4", "17b exact"), "ORB": ("I-5", "17b ORB"),
+              "insel --sgm": ("I-6", "17b insel --sgm")}
+
+
+def rank_cards_of(log: str, world: int, label: str, backend: str) -> list[list[tuple]]:
+    """Each rank's cards [(index, "GPU-<uuid>, PCI bus <bus>"), ...], its
+    bound card first, from its process-group line; raises unless every
+    rank took `backend` by the port's rule."""
+    out = []
+    for r in range(world):
+        m = re.search(rf"r{r}/{world}\] process group: rank {r} of {world}, backend (\w+) "
+                      rf"\(\d+ local rank\(s\) on \d+ card\(s\); this rank's card: (\d+) "
+                      rf"([^;)]*)((?:; its card \d+: [^;)]*)*)\)", log)
+        if not m:
+            raise AssertionError(f"{label}: rank {r} logged no process-group line with its cards")
+        if m.group(1) != backend:
+            raise AssertionError(f"{label}: rank {r} took backend {m.group(1)}, not {backend}")
+        out.append([(int(m.group(2)), m.group(3))] + [
+            (int(c), u) for c, u in re.findall(r"; its card (\d+): ([^;)]*)", m.group(4))])
+    return out
+
+
+def launches_by_card(log: str, world: int) -> list[dict]:
+    """Each rank's "kernel launches by card" line: {kernel: {card: n}}
+    ({} where the rank launched no kernel)."""
+    out = []
+    for r in range(world):
+        m = re.search(rf"r{r}/{world}\] kernel launches by card: (.*)", log)
+        out.append(by_card_counts(m.group(1)) if m else {})
+    return out
+
+
+def check_card_launches(label: str, by_rank: list[dict], cards: list[list[int]],
+                        kernels: list[str], idle: tuple = ()) -> None:
+    """Each kernel in `kernels` launched on every card of every rank
+    (cards[r]) but the (rank, card) pairs in `idle`, which have no work,
+    and on none of those."""
+    for r, rank_cards in enumerate(cards):
+        for c in rank_cards:
+            for name in kernels:
+                n = by_rank[r].get(name, {}).get(c, 0)
+                if (n > 0) == ((r, c) in idle):
+                    raise AssertionError(f"{label}: rank {r} launched {name} {n} times on card "
+                                         f"{c} (without work: {idle})")
+
+
+def rbc_cli(card: str, label: str, argv: list[str], log_name: str, timeout: float, env: dict,
+            backend: str, kernels: list[str], idle: tuple = ()) -> tuple[str, list, list]:
+    """One CLI run at RBC_WORLD ranks under torchrun (each rank's devices
+    by -Pdevice= in argv, or its block of cards), checked: `backend` by
+    the port's rule, each kernel in `kernels` launched on every card with
+    work (check_card_launches). Prints each rank's cards, wall, stage split
+    and launches by card. Returns (log, each rank's report (rank_report),
+    each rank's cards)."""
+    log, wall = torchrun_cli(argv, RBC_WORLD, log_name, timeout, env)
+    held = rank_cards_of(log, RBC_WORLD, label, backend)
+    reports = rank_report(log, RBC_WORLD)
+    RBC_WALLS[label] = (wall, reports)
+    by_rank = launches_by_card(log, RBC_WORLD)
+    cards = [sorted({c for c, _ in h}) for h in held]
+    say(card, f"{label}: torchrun wall {wall:.2f} s, {RBC_WORLD} {backend} ranks; " + "; ".join(
+        f"rank {r} cards " + ", ".join(f"{c} {u}" for c, u in h) for r, h in enumerate(held)))
+    say_ranks(card, label, reports, wall, f"{RBC_WORLD} ranks x {len(cards[0])} card(s) each")
+    for r, n in enumerate(by_rank):
+        say(card, f"{label} rank {r}: kernel launches by card " + per_card(n))
+    check_card_launches(label, by_rank, cards, kernels, idle)
+    return log, reports, cards
+
+
+def rbc_dryrun(card: str, label: str, env: dict, backend: str, args: tuple = ()) -> list[list]:
+    """parallel/dryrun.py at RBC_WORLD ranks from an emptied build dir
+    (dryrun_at): every rank OK, `backend` by the rule, K1, K1x, K2a and K3
+    launched on every card of every rank. Returns each rank's cards."""
+    log, _ = dryrun_at(card, RBC_WORLD, args, env, tag="_rbc")
+    held = rank_cards_of(log, RBC_WORLD, f"{label} dryrun", backend)
+    by_rank = []
+    for r in range(RBC_WORLD):
+        m = re.search(rf"dryrun rank {r} of {RBC_WORLD}: OK; kernel launches by card (.*)", log)
+        if not m:
+            raise AssertionError(f"{label} dryrun: rank {r} did not report launches by card")
+        by_rank.append(by_card_counts(m.group(1)))
+    cards = [sorted({c for c, _ in h}) for h in held]
+    say(card, f"{label} dryrun launches by card: "
+              + " | ".join(f"rank {r} " + per_card(n) for r, n in enumerate(by_rank)))
+    check_card_launches(f"{label} dryrun", by_rank, cards, ["two_nn_batch_fused",
+                        "two_nn_exact_batch", "sgm_bidir", "pm_score_rect"])
+    return held
+
+
+def rbc_dense_reference(card: str, label: str, out: str, flags: list[str], n_views: int) -> None:
+    """A world-1 run on ONE_CARD resumed from the run's scene.npz with
+    `flags`: the depth maps bit-equal and the dense files identical."""
+    ref = out + "-w1"
+    rc, _, wall = run_cli(["-Prun=photogrammetrie", f"-Presume={out}/scene.npz", f"-Pout={ref}",
+                           *flags, "--artifacts"], f"chip_smoke_{os.path.basename(ref)}.log")
+    if rc != 0:
+        raise AssertionError(f"{label} world-1 reference exited {rc}")
+    depth_maps_equal(out, ref, n_views, label)
+    files_equal(out, ref, ["pointcloud_dense.ply", "mesh_dense.ply"], label)
+    say(card, f"{label}: {n_views} depth maps bit-equal, pointcloud_dense.ply and mesh_dense.ply "
+              f"identical to a world-1 run on {ONE_CARD} resumed from its scene.npz (wall "
+              f"{wall:.2f} s)")
+
+
+def rbc_insel(card: str, work: str, label: str, env: dict, backend: str, devices: list[str],
+              idle: tuple) -> list[dict]:
+    """insel with phase 6's flags at RBC_WORLD ranks: 3 views for 4
+    shards (the last computes none) and 3 pairs (matching unsharded), K2a
+    on every card with work, rank 0 alone writing, the depth maps and
+    dense files held to world 1. Returns each rank's launches by card."""
+    insel = os.path.join(ROOT, "sample_data", "insel")
+    out = os.path.join(work, f"out-{label.split()[0]}-insel")
+    dense = ["--dense", "--sgm", "--mesh", "--colored"]
+    log, reports, _ = rbc_cli(card, label, ["-Prun=photogrammetrie", f"-Pimage={insel}",
+                                            f"-Pout={out}", *dense, "--stats", "--artifacts",
+                                            *devices], f"chip_smoke_{label.split()[0]}_insel.log",
+                              300, env, backend, ["sgm_bidir"], idle)
+    scene, med = check_outputs(out)
+    n_pts, _ = ply_counts(os.path.join(out, "pointcloud_dense.ply"))
+    _, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
+    say(card, f"{label}: {int(scene.recovered.sum())}/3 views, median reprojection {med:.4f} px, "
+              f"{n_pts} dense points, {n_faces} faces")
+    if int(scene.recovered.sum()) != 3 or not med < 1.0 or n_pts <= 0 or n_faces <= 0:
+        raise AssertionError(f"{label}: {int(scene.recovered.sum())}/3 views, {med} px, "
+                             f"{n_pts} points, {n_faces} faces")
+    if "pair-sharded matching" in log:
+        raise AssertionError(f"{label}: 3 pairs for 4 shards were matched sharded")
+    for r in range(RBC_WORLD):
+        what = f"MVS r{r}/{RBC_WORLD}] view-sharded depth maps over 4 shards (2 ranks x 2 devices)"
+        if what not in log:
+            raise AssertionError(f"{label}: rank {r} did not log {what!r}")
+    rank0_alone_finished(label, log, reports, dense=True, world=RBC_WORLD)
+    rbc_dense_reference(card, label, out, dense, 3)
+    return launches_by_card(log, RBC_WORLD)
+
+
+def rbc_scene(card: str, work: str, n_views: int, h: int, w: int, f: float) -> str:
+    """Phase 7's scene.npz where phase 7 ran in this call, else a sparse
+    world-1 run of the render on ONE_CARD."""
+    scene_npz = os.path.join(work, "out-dense", "scene.npz")
+    if os.path.exists(scene_npz):
+        return scene_npz
+    data, _, _ = render_once(card, work, n_views, h, w, f)
+    out = os.path.join(work, "out-rbc-scene")
+    rc, _, wall = run_cli(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}",
+                           "-Pfeature-limit=0"], "chip_smoke_18_scene.log")
+    if rc != 0:
+        raise AssertionError(f"the render's sparse run for phase 18 exited {rc}")
+    say(card, f"18: phase 7 did not run in this call; the render's sparse SfM on {ONE_CARD} "
+              f"in {wall:.2f} s")
+    return os.path.join(out, "scene.npz")
+
+
+def phase_rbc_one_card(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
+    """18a: 2 gloo ranks, each -Pdevice=cuda:0,cuda:0 (4 shards on one
+    card): the dryrun from an emptied build dir, insel with phase 6's
+    flags, then the sharded matcher (fast and exact) and depth maps (rect
+    --sgm, PatchMatch) on phase 7's scene.npz, each held bit for bit to
+    world 1 on the card. Returns each kernel's launches by rank."""
+    env = visible_cards(1)
+    devices = f"{ONE_CARD},{ONE_CARD}"
+    rbc_dryrun(card, "18a", env, "gloo", ("--device", devices))
+    insel = rbc_insel(card, work, "18a insel --sgm", env, "gloo", [f"-Pdevice={devices}"], ())
+    fn = sharded_functions(card, "18a functions", rbc_scene(card, work, n_views, h, w, f),
+                           devices, RBC_WORLD, env, "gloo", "-")
+    return {"k2a": [n.get("sgm_bidir", {}) for n in insel],
+            **{k: [r["by_card"][name] for r in fn] for k, name in (
+                ("k1", "two_nn_batch_fused"), ("k1x", "two_nn_exact_batch"),
+                ("k2b_hpair", "sgm_hpair"), ("k2b_dir_acc", "sgm_dir_acc"),
+                ("k3", "pm_score_rect"))}}
+
+
+def phase_rbc_four_cards(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0,
+                         devices: str = "cuda", backend: str = "nccl") -> dict:
+    """18b: 2 nccl ranks, each its block of two of four cards
+    (-Pdevice=cuda: cards 0-1 and 2-3; four distinct UUIDs): the dryrun
+    from an emptied build dir; the render with phase 7's flags; sharded BA
+    (float64), the matcher and depth maps on its scene against one card;
+    PatchMatch resumed under -Pprofile= (each card's kernels on one time
+    axis); exact; ORB at -Pfeature-limit=8192; insel --sgm (card 3
+    computes none). The limits of phases 4, 7, 10, 13 and 14; depth maps
+    and dense files held to world 1 on card 0. Returns each kernel's
+    launches by rank and card. `devices` other than "cuda" (each rank's
+    -Pdevice=, e.g. cpu,cpu under gloo) rehearses the phase elsewhere."""
+    import torch
+
+    if devices == "cuda" and torch.cuda.device_count() < WORLD4:
+        raise AssertionError(f"18b needs four cards; this machine has "
+                             f"{torch.cuda.device_count()}")
+    env = visible_cards(WORLD4)
+    named = [] if devices == "cuda" else [f"-Pdevice={devices}"]
+    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
+    held = rbc_dryrun(card, "18b", env, backend, ("--device", devices))
+    ids = [u for h_ in held for _, u in h_]
+    if devices == "cuda" and ([[c for c, _ in h_] for h_ in held] != [[0, 1], [2, 3]]
+                              or len(set(ids)) != WORLD4):
+        raise AssertionError(f"18b: the ranks' cards are not 0-1 and 2-3 of four distinct "
+                             f"cards: {held}")
+    launches = {}
+
+    # the render with phase 7's flags from the images
+    out = os.path.join(work, "out-18b-sgm")
+    dense = ["--dense", "--sgm", "--mesh", "--colored"]
+    log, reports, _ = rbc_cli(card, "18b --sgm", [
+        "-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0", *dense,
+        "--stats", "--artifacts", *named], "chip_smoke_18b_sgm.log", 600, env, backend,
+        ["two_nn_batch_fused", "sgm_hpair", "sgm_dir_acc"])
+    scene, med = check_outputs(out)
+    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
+    share, n_pts = dense_accuracy(out, gt_R, gt_C)
+    _, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
+    ba = re.findall(rf"r0/{RBC_WORLD}\] BA #\d+: cost \S+ \((\d+) iters.*?"
+                    rf"(, point-sharded over {RBC_WORLD} ranks)?$", log, re.M)
+    say(card, f"18b --sgm: {len(rec)}/{n_views} views, ATE {rel_ate:.5%} of extent, max rel rot "
+              f"{rot:.4f} deg, median reprojection {med:.4f} px, {n_pts} dense points, "
+              f"{share:.4%} within 1% of depth (limit {DENSE_SHARE_LIMIT:.0%}), {n_faces} faces; "
+              f"{sum(1 for _, s in ba if s)} of {len(ba)} BA runs over the gate of "
+              f"{2048 * RBC_WORLD} live observations ({int((scene.obs_w > 0).sum())} at the end) "
+              f"point-sharded over the ranks; counts: {dense_counts(log)}")
+    if len(rec) != n_views or not (rel_ate <= SIFT_ATE_LIMIT and rot <= 0.25 and med < 1.0):
+        raise AssertionError(f"18b --sgm: {len(rec)} views, ATE {rel_ate}, rot {rot}, {med}")
+    if not share >= DENSE_SHARE_LIMIT or n_pts <= 0 or n_faces <= 0:
+        raise AssertionError(f"18b --sgm: {share:.4%} of {n_pts} points, {n_faces} faces")
+    kind = "4 shards (2 ranks x 2 devices)"
+    for r in range(RBC_WORLD):
+        for what in (f"SfM r{r}/{RBC_WORLD}] pair-sharded matching over {kind}",
+                     f"MVS r{r}/{RBC_WORLD}] view-sharded depth maps over {kind}"):
+            if what not in log:
+                raise AssertionError(f"18b --sgm: rank {r} did not log {what!r}")
+    rank0_alone_finished("18b --sgm", log, reports, dense=True, world=RBC_WORLD)
+    by_rank = launches_by_card(log, RBC_WORLD)
+    launches["k1"] = [n.get("two_nn_batch_fused", {}) for n in by_rank]
+    launches["k2b"] = [{c: n["sgm_hpair"].get(c, 0) + n["sgm_dir_acc"].get(c, 0)
+                        for c in n["sgm_hpair"]} if n else {} for n in by_rank]
+    rbc_dense_reference(card, "18b --sgm", out, dense, n_views)
+
+    fn = sharded_functions(card, "18b functions", os.path.join(out, "scene.npz"), devices,
+                           RBC_WORLD, env, backend, "f64")
+    launches["k1x_function"] = [r["by_card"]["two_nn_exact_batch"] for r in fn]
+
+    # PatchMatch resumed, profiled: each card's kernels on one time axis
+    out_pm, prof = os.path.join(work, "out-18b-pm"), os.path.join(work, "prof-18b")
+    pm = ["-Pdense-method=patchmatch", "--dense", "--mesh", "--colored"]
+    log, reports, _ = rbc_cli(card, "18b PatchMatch", [
+        "-Prun=photogrammetrie", f"-Presume={out}/scene.npz", f"-Pout={out_pm}", *pm, "--stats",
+        "--artifacts", f"-Pprofile={prof}", *named], "chip_smoke_18b_pm.log", 600, env, backend,
+        ["pm_score_rect"])
+    share, n_pts = dense_accuracy(out_pm, gt_R, gt_C)
+    say(card, f"18b PatchMatch (under -Pprofile=): {n_pts} dense points, {share:.4%} within 1% of "
+              f"depth (limit {PM_DENSE_SHARE_LIMIT:.0%}); counts: {dense_counts(log)}")
+    if not share >= PM_DENSE_SHARE_LIMIT:
+        raise AssertionError(f"18b PatchMatch: {share:.4%} of {n_pts} points on the surfaces")
+    rank0_alone_finished("18b PatchMatch", log, reports, dense=True, stats=False, world=RBC_WORLD)
+    launches["k3"] = [n.get("pm_score_rect", {}) for n in launches_by_card(log, RBC_WORLD)]
+    busy = card_busy(*(os.path.join(prof, f"trace.rank{r}.json") for r in range(RBC_WORLD)))
+    say(card, "18b PatchMatch profiled: kernels per card on one time axis "
+        + "; ".join(f"card {c} {a:.3f}-{b:.3f} s busy {t:.3f} s"
+                    for c, (a, b, t) in busy["cards"].items())
+        + f"; two or more cards busy at once {busy['overlap_s']:.3f} s")
+    rbc_dense_reference(card, "18b PatchMatch", out_pm, pm, n_views)
+
+    for label, flags, kern, limits in (
+            ("18b exact", ["-Pfeature-limit=0", "-Pmatch-precision=exact"],
+             "two_nn_exact_batch", (SIFT_ATE_LIMIT, 0.25)),
+            ("18b ORB", ["-Pfeature-detector=ORB", "-Pfeature-limit=8192"],
+             "two_nn_batch_fused", (ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG))):
+        tag = label.split()[1].lower()
+        out_s = os.path.join(work, f"out-18b-{tag}")
+        log, reports, _ = rbc_cli(card, label, ["-Prun=photogrammetrie", f"-Pimage={data}",
+                                                f"-Pout={out_s}", *flags, "--stats", *named],
+                                  f"chip_smoke_18b_{tag}.log", 600, env, backend, [kern])
+        by_rank = launches_by_card(log, RBC_WORLD)
+        if label == "18b exact" and any(n.get("two_nn_batch_fused") for n in by_rank):
+            raise AssertionError("18b exact: K1 launched in exact mode")
+        world4_sparse_limits(card, label, out_s, n_views, gt_R, gt_C, *limits)
+        rank0_alone_finished(label, log, reports, dense=False, world=RBC_WORLD)
+        launches["k1x" if tag == "exact" else "k1_orb"] = [n.get(kern, {}) for n in by_rank]
+
+    insel = rbc_insel(card, work, "18b insel --sgm", env, backend, named, idle=((1, 3),))
+    launches["k2a"] = [n.get("sgm_bidir", {}) for n in insel]
+    return launches
+
+
+def say_rbc_walls(card: str) -> None:
+    """18b's torchrun walls beside phase 16's (world 4 x 1) and 17b's (one
+    process, 1 x 4) from the same call."""
+    for run, (i_run, mesh_label) in RBC_BESIDE.items():
+        if "18b " + run not in RBC_WALLS:
+            continue
+        w4, w1x4 = TORCHRUN_WALLS.get(i_run), MESH_WALLS.get(mesh_label)
+        wall, reports = RBC_WALLS["18b " + run]
+        split = "; ".join(f"rank {r} " + ", ".join(
+            f"{k} {rep['stages'][k][0]:.3f} s" for k in ("features", "sfm", "outputs", "dense")
+            if k in rep["stages"]) for r, rep in enumerate(reports))
+        say(card, f"walls of {run}: 2 ranks x 2 cards (18b) {wall:.2f} s ({split}); 4 ranks x 1 "
+                  f"card (16, {i_run}) " + (f"{w4:.2f} s" if w4 is not None else "not run")
+            + "; 1 process x 4 cards (17b) " + (f"{w1x4:.2f} s" if w1x4 is not None else "not run")
+            + (" (16's ORB at capacity, 18b's and 17b's at 8,192 features)" if run == "ORB" else ""))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", help="comma-separated phases (default: 1-15 and 17, and 16 "
+    ap.add_argument("--phases", help="comma-separated phases (default: 1-15, 17 and 18, and 16 "
                     "on a machine with four cards)")
     ap.add_argument("--k1x-timing", metavar="ROOT",
                     help="only time K1x of the checkout at ROOT (see k1x_timing)")
@@ -2662,6 +3126,7 @@ def main() -> int:
         return k1x_timing(args.k1x_timing, args.k1x_inputs)
     sys.path.insert(0, ROOT)
     os.makedirs(LOG_DIR, exist_ok=True)
+    open(os.path.join(LOG_DIR, "chip_smoke.log"), "w").close()  # say appends this run's lines
     card = card_line()
     print(card, flush=True)
     if FOUR_CARD_PHASE not in phases and not args.phases:
@@ -2767,6 +3232,21 @@ def run_phases(card: str, phases: set, work: str) -> int:
         k2b["launches_nccl_world1"] = n1["sgm_hpair"] + n1["sgm_dir_acc"]
         k3["launches_nccl_world1"] = n1["pm_score_rect"]
         say(card, f"phase 15: {time.perf_counter() - t0:.2f} s")
+    four = torch.cuda.device_count() >= WORLD4
+    if RBC_PHASE in phases:  # before 16 and 17: their walls are printed beside its at the end
+        t0 = time.perf_counter()
+        rbc = phase_rbc_four_cards(card, work) if four else phase_rbc_one_card(card, work)
+        # each kernel's launches by rank and card at 2 ranks x 2 devices
+        key = "launches_2x2_4cards" if four else "launches_2x2_1card"
+        entry[key] = {"fp32": rbc["k1"], "bf16_orb": rbc.get("k1_orb")}
+        k1x[key] = rbc["k1x"]
+        k2a[key] = rbc["k2a"]
+        k2b[key] = rbc.get("k2b") or [{c: a.get(c, 0) + b.get(c, 0) for c in a}
+                                      for a, b in zip(rbc["k2b_hpair"], rbc["k2b_dir_acc"])]
+        k3[key] = rbc["k3"]
+        print(json.dumps({key: rbc}), flush=True)
+        say(card, f"phase {RBC_PHASE} ({'18b' if four else '18a'}): "
+                  f"{time.perf_counter() - t0:.2f} s")
     if FOUR_CARD_PHASE in phases:
         t0 = time.perf_counter()
         w4 = phase_world4(card, work)
@@ -2781,7 +3261,6 @@ def run_phases(card: str, phases: set, work: str) -> int:
         say(card, f"phase {FOUR_CARD_PHASE}: {time.perf_counter() - t0:.2f} s")
     if MESH_PHASE in phases:
         t0 = time.perf_counter()
-        four = torch.cuda.device_count() >= WORLD4
         mesh = phase_mesh_four_cards(card, work) if four else phase_mesh_one_card(card, work)
         # each kernel's launches a card over the mesh (17a: two shards on card 0)
         key = "launches_mesh_4cards" if four else "launches_mesh_2shards"
@@ -2794,6 +3273,7 @@ def run_phases(card: str, phases: set, work: str) -> int:
         print(json.dumps({key: mesh}), flush=True)
         say(card, f"phase {MESH_PHASE} ({'17b' if four else '17a'}): "
                   f"{time.perf_counter() - t0:.2f} s")
+    say_rbc_walls(card)
     if not ALL_PHASES <= phases:
         print(f"partial run (phases {sorted(phases)}): every phase passed; no result line",
               flush=True)

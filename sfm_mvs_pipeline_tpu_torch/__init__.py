@@ -66,15 +66,22 @@ def resolve_devices(spec=None) -> tuple[_torch.device, ...]:
     of the JAX package's jax.devices().
 
     `spec` is None, "cuda" or torch.device("cuda") (every visible card; in
-    a process group of torchrun's, the rank's own card), "cpu", one named
-    device, or several as a comma-separated string or a sequence:
+    a process group of torchrun's, the rank's block of cards), "cpu", one
+    named device, or several as a comma-separated string or a sequence:
     "cuda:0,cuda:1,cuda:2,cuda:3", "cuda:0,cuda:0" (two shards on one
     card), "cpu,cpu,cpu,cpu". Raises without a card where one is asked
     for, for a card that does not exist and for a mesh that mixes the CPU
-    and cards. Inside a process group a rank holds one device: its own card
-    (torch.cuda.current_device(), which initialize_distributed set), or the
-    CPU under gloo; anything else raises. Nothing falls back to the CPU or
-    to fewer cards."""
+    and cards.
+
+    Inside a process group a rank holds one or more devices of its own
+    (parallel/distributed.py::rank_cards): "cuda" is its block of
+    device_count // LOCAL_WORLD_SIZE cards from LOCAL_RANK times that, or,
+    where ranks share a card (gloo), the shared card LOCAL_RANK %
+    device_count, which initialize_distributed bound. A list must start at
+    the rank's bound card and name cards of its block only (a card may
+    repeat: "cuda:0,cuda:0"), or be the CPU under gloo ("cpu,cpu");
+    anything else raises. Nothing falls back to the CPU or to fewer
+    cards."""
     import torch.distributed as dist
 
     in_group = dist.is_available() and dist.is_initialized()
@@ -83,7 +90,9 @@ def resolve_devices(spec=None) -> tuple[_torch.device, ...]:
     if spec is None or (isinstance(spec, str) and spec.strip().lower() == "cuda"):
         default_device()
         if in_group:
-            return (_torch.device("cuda", _torch.cuda.current_device()),)
+            from sfm_mvs_pipeline_tpu_torch.parallel.distributed import rank_cards
+
+            return tuple(_torch.device("cuda", c) for c in rank_cards())
         return tuple(_torch.device("cuda", i) for i in range(_torch.cuda.device_count()))
     if isinstance(spec, str):
         spec = [p.strip() for p in spec.lower().split(",")]
@@ -98,14 +107,21 @@ def resolve_devices(spec=None) -> tuple[_torch.device, ...]:
     if len({d.type for d in devices}) > 1:
         raise ValueError(f"a mesh mixes the CPU and cards: {','.join(map(str, devices))}")
     if in_group:
-        if len(devices) > 1:
-            raise RuntimeError(f"a rank of a process group holds one device, not "
-                               f"{len(devices)}: under torchrun each rank takes its own card")
-        dev = devices[0]
-        if dev.type == "cuda" and dev.index != _torch.cuda.current_device():
-            raise RuntimeError(f"this rank's card is cuda:{_torch.cuda.current_device()}, not "
-                               f"{dev}: under torchrun each rank takes its own card")
-        if dev.type == "cpu" and dist.get_backend() != "gloo":
-            raise RuntimeError(f"a rank runs on the CPU only under gloo, not "
-                               f"{dist.get_backend()}")
+        if devices[0].type == "cpu":
+            if dist.get_backend() != "gloo":
+                raise RuntimeError(f"a rank runs on the CPU only under gloo, not "
+                                   f"{dist.get_backend()}")
+            return devices
+        from sfm_mvs_pipeline_tpu_torch.parallel.distributed import rank_cards
+
+        cards = rank_cards()
+        block = ",".join(f"cuda:{c}" for c in cards)
+        if devices[0].index != cards[0]:
+            raise RuntimeError(f"this rank's card is cuda:{cards[0]}, not {devices[0]}: under "
+                               f"torchrun a rank's devices start at its card (its block: "
+                               f"{block})")
+        outside = [str(d) for d in devices if d.index not in cards]
+        if outside:
+            raise RuntimeError(f"this rank holds {block}, not {','.join(outside)}: under "
+                               f"torchrun a rank takes cards of its own block only")
     return devices

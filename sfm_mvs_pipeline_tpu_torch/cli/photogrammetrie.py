@@ -18,12 +18,18 @@ on the first card (sfm/incremental.py::_SHARDED_BA_MIN_OBS says why).
 on one card; cpu,cpu,cpu,cpu).
 
 Launched once per rank by torchrun, the CLI joins the process group first
-(parallel/distributed.py) and each rank takes its card: -Pdevice=cuda then
-means the rank's card, never a mesh. Every rank runs
-the replicated stages (features, RANSAC, PnP, triangulation); matching,
-bundle adjustment and the depth maps run sharded over the ranks. Rank 0
-alone wipes -Pout= and writes the outputs; after the depth-map gather it
-alone fuses, meshes and textures (mvs/pipeline.py::run_mvs).
+(parallel/distributed.py) and each rank takes its block of its host's
+cards: -Pdevice=cuda then means device_count // LOCAL_WORLD_SIZE cards
+from LOCAL_RANK times that (one card a rank when there are as many ranks
+as cards; the shared card when ranks outnumber cards), and a list must
+start at the rank's card ("cuda:0,cuda:0" two shards on it; "cpu,cpu"
+under gloo). Every rank runs the replicated stages (features, RANSAC,
+PnP, triangulation) on its first device; matching and the depth maps run
+sharded over world x devices shards, in rank-major order as the JAX
+package's process x local-device mesh; bundle adjustment over the ranks,
+one shard a rank. Rank 0 alone wipes -Pout= and writes the outputs; after
+the depth-map gather it alone fuses, meshes and textures
+(mvs/pipeline.py::run_mvs).
 """
 
 from __future__ import annotations
@@ -51,11 +57,13 @@ def print_usage() -> None:
   -Pcamera-model=simple|simple-radial|distortion   (default simple-radial)
   -Pdevice=cuda|cpu|<list>           where the work runs (default cuda:
                                      every visible card as one mesh, or
-                                     fail; under torchrun the rank's card;
-                                     cpu runs the kernels' plain PyTorch
-                                     versions; a list such as
+                                     fail; under torchrun the rank's
+                                     block of cards, cards / local ranks
+                                     of them; cpu runs the kernels' plain
+                                     PyTorch versions; a list such as
                                      cuda:0,cuda:1 or cpu,cpu names the
-                                     mesh's shards)
+                                     mesh's shards, under torchrun the
+                                     rank's, from its first card)
   -Pfeature-detector=sift|orb        (default sift; orb = FAST-9 + Harris on
                                      an 8-level pyramid, rotated BRIEF)
   -Pfeature-limit=N                  max features per image (default 10000,
@@ -130,7 +138,7 @@ def main(args: AppArgs) -> int:
         return 0
     import torch.distributed as dist
 
-    # first: under torchrun, join the group and take this rank's card
+    # first: under torchrun, join the group and take this rank's cards
     joined = not dist.is_initialized()
     distributed.initialize_distributed(
         backend="gloo" if _device_name(args).startswith("cpu") else None)
@@ -199,7 +207,8 @@ def _main(args: AppArgs) -> int:
 
 def _log_stage_times() -> None:
     """--stage-times: each stage's wall (collectives included) and each
-    kernel's launches in this process, one line each."""
+    kernel's launches in this process, one line each, and, where kernels
+    ran on the cards, each kernel's launches by card."""
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
 
     split = stage_timer.report()
@@ -208,6 +217,10 @@ def _log_stage_times() -> None:
                sgm_kernel.sgm_bidir, sgm_kernel.sgm_hpair, sgm_kernel.sgm_dir_acc,
                pm_kernel.pm_score_rect)
     log.info("kernel launches: " + ", ".join(f"{k.__name__} {k.launches}" for k in kernels))
+    if any(getattr(k, "by_card", None) for k in kernels):
+        log.info("kernel launches by card: " + ", ".join(
+            f"{k.__name__} " + "/".join(f"{c}:{n}" for c, n in sorted(k.by_card.items()))
+            for k in kernels))
 
 
 def _device_name(args: AppArgs) -> str:
@@ -224,22 +237,25 @@ def _device(args: AppArgs):
 
 
 def _log_devices(mesh) -> None:
-    """One line a device of the mesh: its card's name and UUID."""
+    """One line a device of the mesh (under torchrun, of the rank's, each
+    line tagged with the rank): its card's name and UUID."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import _card_id
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import _card_id, process_count
 
+    whose = "rank's device" if process_count() > 1 else "mesh device"
     for i, dev in enumerate(mesh.devices):
         where = (f"{torch.cuda.get_device_name(dev)}, {_card_id(dev)}" if dev.type == "cuda"
                  else "cpu")
         log.info(f"device: {where}" if len(mesh) == 1 else
-                 f"mesh device {i} of {len(mesh)}: {dev}, {where}")
+                 f"{whose} {i} of {len(mesh)}: {dev}, {where}")
 
 
 def _run_profiled(args: AppArgs, mesh, run) -> int:
     """run() (a run from images or resumed), under torch.profiler when
     -Pprofile=<dir> is given: CPU and (on the cards) CUDA activity, written
-    as a Chrome trace into <dir>."""
+    as a Chrome trace into <dir> (trace.json; under torchrun one a rank,
+    trace.rank<r>.json)."""
     profile_dir = args.get("profile")
     if not profile_dir:
         return run()
@@ -251,7 +267,8 @@ def _run_profiled(args: AppArgs, mesh, run) -> int:
     with profile(activities=activities) as prof:
         rc = run()
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
+    rank, world = distributed.process_index(), distributed.process_count()
+    path = os.path.join(profile_dir, f"trace.rank{rank}.json" if world > 1 else "trace.json")
     prof.export_chrome_trace(path)
     log.info(f"profiler trace written to {path}")
     return rc

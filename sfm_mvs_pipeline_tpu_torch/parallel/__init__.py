@@ -1,13 +1,14 @@
 """Multi-process scaling on torch.distributed: sharded matching, BA and depth maps.
 
 Port of sfm_mvs_pipeline_tpu/parallel/. The JAX package runs one SPMD
-program over a device mesh; the port runs one process per rank (launched
-by torchrun), each on its own device, and the data axis is the process
-group's ranks:
+program over a device mesh of processes x local devices; the port runs
+the cards of one process as a mesh of threads (mesh.py), one process per
+rank (launched by torchrun), or both: each rank holding a block of its
+host's cards, the data axis world x L shards in rank-major order:
 
   * PAIRS  — descriptor matching shards the pair list (matching.py)
   * POINTS — bundle adjustment shards points and their observations; the
-             reduced camera system is all-reduced across ranks (ba.py)
+             reduced camera system is summed across the shards (ba.py)
   * VIEWS  — dense stereo shards the reference views (mvs.py)
 
 Every rank repeats the replicated stages (features, RANSAC, PnP,

@@ -1,6 +1,6 @@
 """Multi-process runtime: process-group bring-up, host-level work sharding
-and the collectives the sharded paths use, over ranks or over the cards
-of one process's mesh.
+and the collectives the sharded paths use, over ranks, over the cards
+of one process's mesh, or over both.
 
 Port of sfm_mvs_pipeline_tpu/parallel/distributed.py. torchrun starts one
 process per rank and exports RANK, WORLD_SIZE, LOCAL_RANK,
@@ -9,13 +9,18 @@ reads them. In a single process everything degrades to no-ops, so the
 pipeline code is the same either way.
 
 The sharded functions are written once, over Shards: the shards this
-process holds, one (the rank's) under torchrun, every card of the mesh in
-one process (parallel/mesh.py). Shards.run calls the function once a
-shard, each in a thread of its own under its card and a stream of its own
-in a mesh, and the function's collectives (Shard.all_reduce_sum,
-all_gather_cat, broadcast) go to the process group or meet across the
-threads: a mesh sums in card order on its first card and concatenates
-there in card order, so repeated runs give the same bits.
+process holds of world x L, L devices a rank (every card of the mesh in
+one process; under torchrun the rank's block of its host's cards,
+rank_cards, or one card). Shard k of rank r is global shard r L + k, the
+process-major order of the JAX package's jax.devices() after
+jax.distributed.initialize. Shards.run calls the function once a shard,
+each in a thread of its own under its card and a stream of its own where
+a process holds several, and the function's collectives
+(Shard.all_reduce_sum, all_gather_cat, broadcast) meet in two levels:
+the threads of a process sum in card order on its first card and
+concatenate there in card order, then that one thread alone takes the
+result through the process group, so repeated runs give the same bits
+and a gather is in global shard order.
 
 The backend follows a stated rule, never a caught failure: nccl when
 every local rank has a card of its own, gloo when ranks share a card or run
@@ -57,6 +62,10 @@ DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 log = logging.AppLogger("Distributed")
 
+# the cards initialize_distributed bound this rank to (rank_cards), None
+# outside a group it made
+_RANK_CARDS: list[int] | None = None
+
 
 def choose_backend(local_world_size: int) -> str:
     """nccl when every local rank has its own card; gloo when ranks share
@@ -67,6 +76,26 @@ def choose_backend(local_world_size: int) -> str:
     return "gloo"
 
 
+def card_block(n_cards: int, local_rank: int, local_size: int) -> list[int]:
+    """The cards of local rank `local_rank` of `local_size` on a host of
+    n_cards: a block of n_cards // local_size from local_rank times that,
+    or, where the ranks outnumber the cards, the card local_rank % n_cards
+    they share."""
+    per = n_cards // local_size
+    if per == 0:
+        return [local_rank % n_cards]
+    return list(range(local_rank * per, (local_rank + 1) * per))
+
+
+def rank_cards() -> list[int]:
+    """This rank's cards, the first of them the one it is bound to: the
+    block initialize_distributed bound (card_block), or, in a group made
+    otherwise, the current card alone."""
+    if _RANK_CARDS is not None:
+        return list(_RANK_CARDS)
+    return [torch.cuda.current_device()]
+
+
 def initialize_distributed(backend: str | None = None,
                            timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> bool:
     """Bring up the default process group from torchrun's environment.
@@ -74,7 +103,9 @@ def initialize_distributed(backend: str | None = None,
     Returns True when a group of more than one rank is live. A no-op
     returning False in a single process (no WORLD_SIZE in the environment),
     and safe to call more than once. `backend` None takes choose_backend's
-    rule; each rank takes the card LOCAL_RANK % device_count."""
+    rule; each rank takes its block of cards (card_block) and is bound to
+    the first of them; it logs every card of the block."""
+    global _RANK_CARDS
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -90,7 +121,8 @@ def initialize_distributed(backend: str | None = None,
         backend = choose_backend(local_size)
     card = None
     if n_cards:
-        card = torch.device("cuda", local_rank % n_cards)
+        _RANK_CARDS = card_block(n_cards, local_rank, local_size)
+        card = torch.device("cuda", _RANK_CARDS[0])
         torch.cuda.set_device(card)
     # under nccl the group is bound to the rank's card, so barrier and the
     # object collectives run there without torch guessing the device
@@ -98,10 +130,17 @@ def initialize_distributed(backend: str | None = None,
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=size,
                             timeout=timeout, **bound)
     logging.set_rank(rank, size)
+    others = "".join(f"; its card {c}: {_card_id(torch.device('cuda', c))}"
+                     for c in (_RANK_CARDS or [])[1:])
     where = (f"{local_size} local rank(s) on {n_cards} card(s); this rank's card: "
-             f"{card.index} {_card_id(card)}" if n_cards
+             f"{card.index} {_card_id(card)}{others}" if n_cards
              else f"{local_size} local rank(s), no card")
     log.info(f"process group: rank {rank} of {size}, backend {backend} ({where})")
+    idle = n_cards % local_size if n_cards > local_size else 0
+    if idle and local_rank == 0:
+        log.warn(f"{idle} of {n_cards} cards stay idle: {local_size} local ranks take "
+                 f"{n_cards // local_size} card(s) each; on one host, one process over "
+                 f"every card (-Pdevice=cuda without torchrun) uses them all")
     return size > 1
 
 
@@ -113,10 +152,12 @@ def _card_id(card: torch.device) -> str:
 
 def shutdown_distributed() -> None:
     """Leave the default process group, if this process joined one."""
+    global _RANK_CARDS
     dist = _dist()
     if dist is not None:
         dist.destroy_process_group()
         logging.set_rank(0, 1)
+        _RANK_CARDS = None
 
 
 def process_index() -> int:
@@ -149,49 +190,60 @@ def _dist():
 
 
 def _to_wire(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
-    """The tensor a collective sends: on the backend's device (the rank's
-    card under nccl, the CPU under gloo), bool as uint8; a fresh copy when
-    `copy` (for the collectives that work in place)."""
-    wire = (torch.device("cuda", torch.cuda.current_device())
+    """The tensor a collective sends: on the backend's device (the card
+    the rank is bound to under nccl, whichever card the calling thread
+    works on; the CPU under gloo), bool as uint8; a fresh copy when `copy`
+    (for the collectives that work in place)."""
+    wire = (torch.device("cuda", rank_cards()[0])
             if _dist().get_backend() == "nccl" else torch.device("cpu"))
     dtype = torch.uint8 if t.dtype == torch.bool else t.dtype
     return t.to(device=wire, dtype=dtype, copy=copy).contiguous()
 
 
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+    w = _to_wire(t, copy=True)
+    _dist().all_reduce(w)
+    return w.to(device=t.device, dtype=t.dtype)
+
+
+def _all_gather(t: torch.Tensor) -> torch.Tensor:
+    dist = _dist()
+    w = _to_wire(t)
+    parts = [torch.empty_like(w) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, w)
+    return torch.cat(parts).to(device=t.device, dtype=t.dtype)
+
+
+def _broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
+    w = _to_wire(t, copy=True)
+    _dist().broadcast(w, src)
+    return w.to(device=t.device, dtype=t.dtype)
+
+
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of t over the ranks, on t's device (t itself in a single
     process)."""
-    dist = _dist()
-    if dist is None:
+    if _dist() is None:
         return t
     with stage("collective all_reduce"):
-        w = _to_wire(t, copy=True)
-        dist.all_reduce(w)
-        return w.to(device=t.device, dtype=t.dtype)
+        return _all_reduce(t)
 
 
 def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
     """Every rank's t (equal shapes) concatenated along dim 0 in rank
     order, on t's device and in t's dtype."""
-    dist = _dist()
-    if dist is None:
+    if _dist() is None:
         return t
     with stage("collective all_gather"):
-        w = _to_wire(t)
-        parts = [torch.empty_like(w) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, w)
-        return torch.cat(parts).to(device=t.device, dtype=t.dtype)
+        return _all_gather(t)
 
 
 def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     """Rank src's t on every rank, on t's device."""
-    dist = _dist()
-    if dist is None:
+    if _dist() is None:
         return t
     with stage("collective broadcast"):
-        w = _to_wire(t, copy=True)
-        dist.broadcast(w, src)
-        return w.to(device=t.device, dtype=t.dtype)
+        return _broadcast(t, src)
 
 
 def broadcast_object(obj, src: int = 0):
@@ -273,7 +325,10 @@ def check_agree(what: str, *arrays) -> None:
     """Raise when the ranks hold different `arrays` at the entry of a
     sharded function: ranks that repeat the replicated stages and diverge
     (another view registered, a restart on one rank only) would otherwise
-    feed the collectives mismatched work."""
+    feed the collectives mismatched work. Called once a rank, from the
+    thread that calls the sharded function, before its shard threads
+    start: a tensor is fingerprinted where it lies (the rank's first
+    card), never once a card."""
     if _dist() is None:
         return
     seen = _gather_ints(digest(*arrays))
@@ -309,93 +364,119 @@ def _load_cuda_linalg(dev: torch.device) -> None:
 
 
 class _Rendezvous:
-    """Where a mesh's shard threads meet for a collective: each puts its
-    tensor in its slot, shard 0 combines them, each takes the result."""
+    """Where the shard threads of one process meet for a collective: each
+    puts its tensor in its slot, the first shard's thread combines them
+    (and alone takes the result through the process group), each takes
+    the result."""
 
     def __init__(self, n: int):
         self.slots = [None] * n
         self.result = None
         self.barrier = threading.Barrier(n, timeout=DEFAULT_TIMEOUT.total_seconds())
 
-    def exchange(self, index: int, t: torch.Tensor, combine) -> torch.Tensor:
-        self.slots[index] = _settled(t)
+    def exchange(self, local: int, t: torch.Tensor, combine) -> torch.Tensor:
+        self.slots[local] = _settled(t)
         self.barrier.wait()  # every slot filled
-        if index == 0:
+        if local == 0:
             self.result = _settled(combine(self.slots))
-        # the result made; shard 0 replaces it only after the next
+        # the result made; the first shard replaces it only after the next
         # exchange's first wait, which every shard reaches after taking it
         self.barrier.wait()
         return self.result
 
 
 class Shard:
-    """One shard of a sharded function: its index among `count` shards, its
-    device, and the collectives over every shard."""
+    """One shard of a sharded function: its global index among `count`
+    shards, its device, and the collectives over every shard. `local` is
+    its place among the shards of its process, `rv` their rendezvous (None
+    where the process holds one shard)."""
 
-    def __init__(self, shards: Shards, index: int, device: torch.device, rv=None):
-        self.shards, self.index, self.device, self._rv = shards, index, device, rv
+    def __init__(self, shards: Shards, local: int, rv=None):
+        self.shards, self.local, self._rv = shards, local, rv
+        self.index, self.device = shards.held[local], shards.devices[local]
         self.count = shards.count
 
-    def _mesh(self, what: str, t: torch.Tensor, combine) -> torch.Tensor:
+    def _meet(self, what: str, t: torch.Tensor, combine) -> torch.Tensor:
         with stage(f"collective {what}"):
-            return self._rv.exchange(self.index, t, combine)
+            return self._rv.exchange(self.local, t, combine)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of t over the shards, on this shard's device: in a mesh
-        summed in card order on the first card."""
-        if self.shards.ranks or self.count == 1:
+        """The sum of t over the shards, on this shard's device: a process's
+        shards summed in card order on its first card, then that sum over
+        the ranks."""
+        if self._rv is None:
             return all_reduce_sum(t)
-        first = self.shards.first
+        first, ranks = self.shards.first, self.shards.ranks
 
         def total(parts):
             acc = parts[0].to(first, copy=True)
             for p in parts[1:]:
                 acc += p.to(first)
-            return acc
+            return _all_reduce(acc) if ranks else acc
 
-        return _settled(self._mesh("all_reduce", t, total).to(self.device, copy=True))
+        return _settled(self._meet("all_reduce", t, total).to(self.device, copy=True))
 
     def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
-        """Every shard's t (equal shapes) concatenated along dim 0 in shard
-        order, on the first device this process holds (under torchrun the
-        rank's; in a mesh its first card, the same tensor for every
-        shard)."""
-        if self.shards.ranks or self.count == 1:
+        """Every shard's t (equal shapes) concatenated along dim 0 in global
+        shard order, on the first device this process holds (the same
+        tensor for every shard of the process): a process's shards in card
+        order, then the ranks in rank order."""
+        if self._rv is None:
             return all_gather_cat(t)
-        first = self.shards.first
-        return self._mesh("all_gather", t, lambda parts: torch.cat([p.to(first) for p in parts]))
+        first, ranks = self.shards.first, self.shards.ranks
+
+        def cat(parts):
+            mine = torch.cat([p.to(first) for p in parts])
+            return _all_gather(mine) if ranks else mine
+
+        return self._meet("all_gather", t, cat)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Shard src's t, on this shard's device."""
-        if self.shards.ranks or self.count == 1:
+        """Global shard src's t, on this shard's device."""
+        if self._rv is None:
             return broadcast(t, src)
-        return _settled(self._mesh("broadcast", t, lambda parts: parts[src]).to(
-            self.device, copy=True))
+        per, ranks = len(self.shards.held), self.shards.ranks
+        src_rank, src_local = divmod(src, per)
+
+        def pick(parts):
+            if not ranks:
+                return parts[src_local]
+            return _broadcast(parts[src_local] if self.shards.rank == src_rank else parts[0],
+                              src_rank)
+
+        return _settled(self._meet("broadcast", t, pick).to(self.device, copy=True))
 
 
 class Shards:
-    """The shards this process holds of a sharded function's `count`:
-    under torchrun the rank's one shard on its device (count = the world
-    size), else one shard a device of the mesh (count = its size).
-    `devices` is a Mesh or a resolve_devices spec."""
+    """The shards this process holds of a sharded function's `count`, one
+    a device it holds: in one process every device of the mesh (count =
+    its size); under torchrun the rank's L devices (resolve_devices: its
+    block of cards, one card, or a list), shards rank L to rank L + L - 1
+    of count = world x L, every rank holding the same L. `devices` is a
+    Mesh or a resolve_devices spec. `kind` names the shape in the logs."""
 
     def __init__(self, devices=None):
         rank, size = world()
-        self.ranks = size > 1
+        self.rank, self.ranks = rank, size > 1
         if self.ranks:
             from sfm_mvs_pipeline_tpu_torch import resolve_devices
 
             spec = devices.devices if isinstance(devices, Mesh) else devices
-            self.mesh = Mesh(resolve_devices(spec))  # one device: a rank never builds a mesh
-            self.held, self.count = [rank], size
+            self.mesh = Mesh(resolve_devices(spec))
+            per = len(self.mesh)
+            if not all_hosts_agree(per):  # a rectangle, as the JAX package's mesh
+                raise RuntimeError(f"the ranks hold different numbers of devices (this rank "
+                                   f"{per}: {','.join(map(str, self.mesh.devices))})")
+            self.held, self.count = [rank * per + j for j in range(per)], size * per
+            self.kind = "ranks" if per == 1 else f"shards ({size} ranks x {per} devices)"
         else:
             self.mesh = make_mesh(devices)
             self.held, self.count = list(range(len(self.mesh))), len(self.mesh)
-            if len(self.mesh) > 1:
-                stage_timer.watch(self.mesh.devices)
+            self.kind = "devices"
+        if len(self.mesh) > 1:
+            stage_timer.watch(self.mesh.devices)
         self.devices = self.mesh.devices
         self.first = self.mesh.first
-        self.kind = "ranks" if self.ranks else "devices"
 
     @classmethod
     def of_entry(cls, device, devices) -> Shards:
@@ -418,22 +499,24 @@ class Shards:
         (parallel/mesh.py::shard_leading), under torchrun the rank's."""
         if not self.ranks:
             return shard_leading(self.mesh, x, fill)
-        lo, hi = block(len(x), self.held[0], self.count)
         padded = pad_to_multiple(np.asarray(torch.as_tensor(x).cpu()), self.count, fill)
-        return [torch.as_tensor(padded[lo:hi], device=self.first)]
+        return [torch.as_tensor(padded[slice(*block(len(x), i, self.count))], device=dev)
+                for i, dev in zip(self.held, self.devices)]
 
     def run(self, fn, *per_shard) -> list:
         """[fn(shard, *its items of per_shard) for each shard this process
         holds], in shard order; each of `per_shard` is a list with one item
         a held shard (Shards.replicated, Shards.leading). One shard runs in
-        the calling thread. A mesh runs each shard in a thread of its own
-        under its card: the first shard of a card on the caller's current
-        stream there, any other on a stream of its own, each tagged in the
-        log and timed on its own stream (stage_timer.merge keeps each
-        stage's longest shard). A failing shard breaks the others'
-        collectives, and the first failure is raised."""
+        the calling thread. Several (a mesh, or a rank's devices) run each
+        in a thread of its own under its card: the first shard of a card
+        on the caller's current stream there, any other on a stream of its
+        own, each tagged in the log and timed on its own stream
+        (stage_timer.merge keeps each stage's longest shard). A failing
+        shard breaks the others' collectives, and the first failure is
+        raised; under torchrun the rank then fails, and with it the
+        collectives of the other ranks."""
         if len(self.held) == 1:
-            return [fn(Shard(self, self.held[0], self.devices[0]), *(p[0] for p in per_shard))]
+            return [fn(Shard(self, 0), *(p[0] for p in per_shard))]
         streams, seen = [], set()
         for dev in self.devices:
             if dev.type != "cuda":
@@ -453,10 +536,10 @@ class Shards:
                 if streams[i] is not None:
                     ctx.enter_context(torch.cuda.device(dev))
                     ctx.enter_context(torch.cuda.stream(streams[i]))
-                ctx.enter_context(logging.shard_tag(i, self.count, dev))
+                ctx.enter_context(logging.shard_tag(self.held[i], self.count, dev))
                 ctx.enter_context(stage_timer.shard_thread(timed))
                 try:
-                    out = fn(Shard(self, self.held[i], dev, rv), *(p[i] for p in per_shard))
+                    out = fn(Shard(self, i, rv), *(p[i] for p in per_shard))
                 except BaseException:
                     rv.barrier.abort()  # the other shards leave their collectives
                     raise

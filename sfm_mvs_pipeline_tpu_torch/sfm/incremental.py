@@ -120,11 +120,15 @@ class _BogusStart(Exception):
 
 
 # bundle adjustment runs point-sharded in a process group of N > 1 ranks
-# from N times this many live observations (the JAX package's threshold).
-# A one-process mesh does not shard it: its shards are threads that take
-# turns at the interpreter lock and the jacfwd lock and meet at a barrier
-# for every sum, and on four H100s that made the ORB render's SfM 2.2x
-# slower than one card (PERF.md, Findings).
+# from N times this many live observations (the JAX package's threshold),
+# one shard a rank on the rank's first card, whatever devices each rank
+# holds. The cards of a process do not shard it, in a one-process mesh or
+# under a rank: their shards are threads that take turns at the
+# interpreter lock and the jacfwd lock and meet at a barrier for every
+# sum, and on four H100s that made the ORB render's SfM 2.2x slower than
+# one card (PERF.md, Findings). The JAX package shards it over its whole
+# mesh; parallel/ba.py::run_bundle_adjustment_sharded still takes any
+# Shards.
 _SHARDED_BA_MIN_OBS = 2048
 
 # homography-ratio pairs per batched RANSAC call (bounds the (chunk, K, F)
@@ -166,12 +170,13 @@ def reconstruct(
     pairs: (P, 2) candidate pairs from a pair policy. The SfM state runs in
     `dtype` on the first device of the mesh `devices`, or `device` (give
     one: a Mesh or a resolve_devices spec; default every visible card;
-    raises without one; under torchrun the rank's card). Matching shards
-    over its devices (or the ranks) past the JAX package's gate; BA shards
-    over torchrun's ranks past its gate, and runs on the first device in a
-    mesh (see _SHARDED_BA_MIN_OBS). Mutates `scene` in place; returns a
+    raises without one; under torchrun the rank's devices). Matching
+    shards over its devices (and the ranks: world x devices shards) past
+    the JAX package's gate; BA shards over torchrun's ranks past its gate,
+    one shard a rank on its first device, and runs on the first device in
+    a mesh (see _SHARDED_BA_MIN_OBS). Mutates `scene` in place; returns a
     stats dict."""
-    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards, process_count
 
     cfg = config or SfMConfig()
     shards = Shards.of_entry(device, devices)
@@ -194,7 +199,7 @@ def reconstruct(
     desc_d = torch.as_tensor(scene.descriptors, device=dev,
                              dtype=torch.bfloat16 if cfg.binary_descriptors else torch.float32)
     match = M.match_pairs_batch
-    n_shards = shards.count
+    n_shards, n_ranks = shards.count, process_count()
     if n_shards > 1 and len(pairs) >= n_shards:
         log(f"pair-sharded matching over {n_shards} {shards.kind}")
         match = functools.partial(match_pairs_sharded, device=shards.devices)
@@ -252,7 +257,7 @@ def reconstruct(
         n_live = max(int((scene.obs_w > 0).sum()), 1)
         # point-sharded over torchrun's ranks above the JAX package's
         # threshold of 2048 live observations a rank (see _SHARDED_BA_MIN_OBS)
-        sharded = shards.ranks and n_live >= _SHARDED_BA_MIN_OBS * n_shards
+        sharded = shards.ranks and n_live >= _SHARDED_BA_MIN_OBS * n_ranks
         out = (run_bundle_adjustment_sharded if sharded else run_bundle_adjustment)(
             scene.points.astype(np.float64),
             scene.poses,
@@ -283,7 +288,7 @@ def reconstruct(
             f"BA #{stats['ba_runs']}: cost {out['cost']:.3g} "
             f"({out['iterations']} iters, rms "
             f"{np.sqrt(2 * out['cost'] / n_live):.3f} px, table {out['table_kind']})"
-            + (f", point-sharded over {n_shards} {shards.kind}" if sharded else "")
+            + (f", point-sharded over {n_ranks} ranks" if sharded else "")
         )
 
     def _full_idx(a, b):

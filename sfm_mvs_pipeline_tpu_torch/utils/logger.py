@@ -4,8 +4,10 @@ Parity with the reference's logger (ref: src/photogrammetrie/util/AppLogger.{h,c
 5 levels TRACE..ERROR, one global level, ANSI colors on ttys (forceable),
 each line carrying elapsed seconds since process start + timestamp +
 component name (AppLogger.cpp:40-94). In a process group of more than one
-rank, each line also carries the rank (set_rank); a line from a mesh's
-shard thread carries its shard and card (shard_tag).
+rank, each line also carries the rank (set_rank); a line from a shard
+thread (parallel/distributed.py::Shards.run: a mesh's, or a rank's that
+holds several devices) carries its global shard index and its device
+(shard_tag), so a record names rank and card: "r1/2 c3/4 cuda:3".
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ _force_color = False
 _lock = threading.Lock()
 _start = time.time()
 _rank_tag = ""
-_local = threading.local()  # the shard tag of a mesh's shard thread
+_local = threading.local()  # the shard tag of a shard thread
 
 
 def set_level(level: int) -> None:
@@ -46,7 +48,8 @@ def set_rank(rank: int, world_size: int) -> None:
 
 @contextlib.contextmanager
 def shard_tag(index: int, count: int, device):
-    """Tag the calling thread's lines with "c<index>/<count> <device>"."""
+    """Tag the calling thread's lines with "c<index>/<count> <device>",
+    index the shard's global index among count."""
     _local.tag = f" c{index}/{count} {device}"
     try:
         yield

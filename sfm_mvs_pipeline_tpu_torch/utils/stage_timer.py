@@ -5,15 +5,17 @@ the dense stage's parts.
 synchronises before and after the block, so each total is the wall of
 that part including its device work; the synchronisation itself slows a
 run, so only a measurement turns it on (chip_smoke.py's dense and ORB
-phases). On the main thread it synchronises every card a mesh of this
-process has run on (watch) besides the current one; in a mesh's shard
-thread (parallel/distributed.py::Shards.run) only that thread's stream,
-so a shard's timer waits for its own work and not for the other cards'.
-Stages of the same name add up. A shard thread keeps its own totals, and
-merge() adds each stage's longest shard total once the threads end (and
-all their calls), so each total stays a wall and the parts of a mesh run
-still add up to at most its wall. In a mesh a collective's total is the
-longest time a shard spent in it, waiting for the other shards included.
+phases). On the main thread it synchronises every card the shards of this
+process have run on (watch: a mesh's, or a rank's block) besides the
+current one; in a shard thread (parallel/distributed.py::Shards.run)
+only that thread's stream, so a shard's timer waits for its own work and
+not for the other cards'. Stages of the same name add up. A shard thread
+keeps its own totals, and merge() adds each stage's longest shard total
+once the threads end (and all their calls), so each total stays a wall
+and the parts of a mesh run, or of a rank's, still add up to at most its
+wall. Where a process holds several shards a collective's total is the
+longest time a shard spent in it, waiting for the other shards (and, under
+torchrun, the other ranks) included.
 `report()` returns the totals and call counts.
 """
 
@@ -29,7 +31,7 @@ _enabled = False
 _totals: dict[str, float] = {}
 _counts: dict[str, int] = {}
 _lock = threading.Lock()
-_watched: set[int] = set()  # card indices a mesh of this process runs on
+_watched: set[int] = set()  # card indices the shards of this process run on
 _local = threading.local()
 
 
@@ -51,7 +53,7 @@ def watch(devices) -> None:
 
 @contextlib.contextmanager
 def shard_thread(into: list):
-    """Mark the calling thread as one shard's of a mesh: its stages are kept
+    """Mark the calling thread as one shard's of a process: its stages are kept
     apart and appended to `into` as (totals, counts) when it ends."""
     _local.shard = ({}, {})
     try:

@@ -9,8 +9,10 @@ threads.
 Tolerances:
   * resolve_devices: the list forms exactly; "cuda" and torch.device("cuda")
     alike; no card, a card that does not exist, a mesh that mixes the CPU
-    and cards, and inside a process group a mesh, another card than the
-    rank's or the CPU under nccl raise.
+    and cards, and inside a process group a list that does not start at
+    the rank's card, a card outside its block or the CPU under nccl raise;
+    a rank's block of cards (card_block) for ranks by cards, one card a
+    rank (phase 16's shape) and ranks sharing a card (phase 15's).
   * matching: bit-equal to match_pairs_batch, and to the JAX package's
     match_pairs_sharded on its make_mesh(4) (jnp backend) on integer
     descriptors (idx at valid queries, masks, distances), fast and exact.
@@ -120,9 +122,11 @@ def gloo_group():
 
 
 def test_default_under_a_process_group_is_the_ranks_card(gloo_group, four_cards, monkeypatch):
-    """In a process group the default is the rank's card, never a mesh; a
-    mesh of several devices, another card than the rank's, a mesh that
-    mixes the CPU and cards, and the CPU under nccl raise."""
+    """In a process group made without initialize_distributed the default
+    is the rank's current card alone; a list must start there and hold no
+    other card (the card may repeat); the CPU under gloo, also as a list;
+    another card than the rank's, a mesh that mixes the CPU and cards, and
+    the CPU under nccl raise."""
     import torch.distributed as dist
 
     from sfm_mvs_pipeline_tpu_torch import resolve_devices
@@ -132,12 +136,13 @@ def test_default_under_a_process_group_is_the_ranks_card(gloo_group, four_cards,
     assert resolve_devices(None) == resolve_devices("cuda") == own
     assert resolve_devices(torch.device("cuda")) == resolve_devices("cuda:2") == own
     assert resolve_devices("cpu") == (torch.device("cpu"),)
-    for spec in ("cpu,cpu", "cuda:0,cuda:1"):
-        with pytest.raises(RuntimeError, match="a rank of a process group holds one device"):
-            resolve_devices(spec)
-    for spec in ("cuda:1", torch.device("cuda", 0)):
+    assert resolve_devices("cpu,cpu") == (torch.device("cpu"),) * 2
+    assert resolve_devices("cuda:2,cuda:2") == own * 2
+    for spec in ("cuda:1", torch.device("cuda", 0), "cuda:0,cuda:1"):
         with pytest.raises(RuntimeError, match="this rank's card is cuda:2"):
             resolve_devices(spec)
+    with pytest.raises(RuntimeError, match="this rank holds cuda:2, not cuda:3"):
+        resolve_devices("cuda:2,cuda:3")
     with pytest.raises(ValueError, match="a mesh mixes the CPU and cards"):
         resolve_devices("cpu,cuda:2")
     monkeypatch.setattr(dist, "get_backend", lambda *a: "nccl")
@@ -146,6 +151,39 @@ def test_default_under_a_process_group_is_the_ranks_card(gloo_group, four_cards,
     monkeypatch.undo()
     shards = Shards("cpu")
     assert (shards.count, shards.held, shards.devices) == (1, [0], (torch.device("cpu"),))
+
+
+@pytest.mark.parametrize("cards, local_rank, local_size, block", [
+    (4, 1, 2, [2, 3]),  # ranks by cards: 2 ranks x 2 cards
+    (4, 0, 2, [0, 1]),
+    (8, 1, 2, [4, 5, 6, 7]),
+    (4, 3, 4, [3]),  # phase 16's shape: one card a rank
+    (1, 1, 2, [0]),  # phase 15's: two ranks share the card (gloo)
+    (2, 3, 4, [1]),
+    (3, 1, 2, [1]),  # a card left over stays idle
+], ids=["2x2-r1", "2x2-r0", "2x4-r1", "4x1-r3", "2-ranks-1-card", "4-ranks-2-cards", "3-cards"])
+def test_rank_block_of_cards(gloo_group, four_cards, monkeypatch, cards, local_rank,
+                             local_size, block):
+    """A rank's block (card_block): device_count // LOCAL_WORLD_SIZE cards
+    from LOCAL_RANK times that, or the shared card; under the group
+    resolve_devices' "cuda" is the block, a list from its first card within
+    it is accepted, anything else raises."""
+    from sfm_mvs_pipeline_tpu_torch import resolve_devices
+    from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+
+    assert D.card_block(cards, local_rank, local_size) == block
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: max(cards, 4))
+    monkeypatch.setattr(D, "_RANK_CARDS", block)
+    own = tuple(torch.device("cuda", c) for c in block)
+    assert resolve_devices("cuda") == resolve_devices(None) == own
+    assert resolve_devices(",".join(map(str, own))) == own
+    assert resolve_devices(f"{own[0]},{own[0]}") == own[:1] * 2
+    with pytest.raises(RuntimeError, match=f"this rank's card is {own[0]}"):
+        resolve_devices(",".join(map(str, own[::-1] + own[:1])) if len(own) > 1 else
+                        f"cuda:{(block[0] + 1) % 4}")
+    outside = next(c for c in range(4) if c not in block)
+    with pytest.raises(RuntimeError, match="a rank takes cards of its own block only"):
+        resolve_devices(f"{own[0]},cuda:{outside}")
 
 
 # ------------------------------------------------------------ mesh helpers

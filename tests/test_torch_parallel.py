@@ -1,8 +1,10 @@
 """The port's sharded paths (parallel/) against its one-rank functions and
 against the JAX package's sharded functions on the 8-device CPU mesh.
 
-The port runs in real gloo process groups of 1, 2 and 4 ranks (one
-`python -c` worker a rank, one torch thread each, launched by
+The port runs in real gloo process groups of 1, 2 and 4 ranks of one
+device each and of 2 ranks of two ("2x2": -Pdevice=cpu,cpu a rank, so 4
+shards in rank-major order, two threads a rank) (one `python -c` worker a
+rank, one torch thread each, launched by
 tests/test_torch_distributed.py::launch_ranks); the world-1 worker also
 computes the one-rank references after leaving its group, so every
 bit-equality compares runs with the same thread count. Inputs are made
@@ -14,15 +16,20 @@ Tolerances:
   * matching: bit-equal to match_pairs_batch at every world size; against
     the JAX package on integer descriptors, idx at valid queries and masks
     equal.
-  * BA (float64): world 1 bit-equal to run_bundle_adjustment; worlds 2 and
-    4 sum in another order: cost within rel 1e-9 and arrays within 1e-7 of
-    it, the same iteration count. Against the JAX package's sharded BA
-    (its fused dense LM, x64): cost rel 1e-6, poses 1e-6, points 1e-5.
+  * BA (float64): world 1 bit-equal to run_bundle_adjustment; worlds 2, 4
+    and 2x2 sum in another order: cost within rel 1e-9 and arrays within
+    1e-7 of it, the same iteration count. Against the JAX package's
+    sharded BA (its fused dense LM, x64): cost rel 1e-6, poses 1e-6,
+    points 1e-5.
   * depth maps: world 1 bit-equal to mvs/pipeline.py::depth_map_view
-    called for each view in a plain loop, and every world size bit-equal
-    to world 1 (sweep, rect, rect + SGM, PatchMatch). Against the JAX package's sharded sweep, rect
+    called for each view in a plain loop, and every shape bit-equal to
+    world 1 (sweep, rect, rect + SGM, PatchMatch). Against the JAX package's sharded sweep, rect
     and rect + SGM: where both are valid, the median relative depth
     difference <= 1e-4 and the valid masks agree on >= 98% of the pixels.
+  * 2x2 against world 4 (the same shard count): matching and depth maps
+    bit-equal; against the JAX package's sharded functions on make_mesh(4)
+    (4 of the 8 virtual CPU devices, whose order is the process-major
+    order of 2 ranks x 2 devices) with the tolerances above.
 """
 
 import os
@@ -35,6 +42,8 @@ from tests.test_parallel_mvs import _camera_ring
 from tests.test_torch_distributed import launch_ranks
 
 WORLDS = (1, 2, 4)
+# a run's shape: (ranks, -Pdevice= of each rank); "2x2" holds two devices a rank
+SHAPES = {1: (1, "cpu"), 2: (2, "cpu"), 4: (4, "cpu"), "2x2": (2, "cpu,cpu")}
 DEPTH_CASES = {"sweep": dict(method="sweep"), "rect": dict(method="rect"),
                "rect_sgm": dict(method="rect", use_sgm=True),
                "patchmatch": dict(method="patchmatch", pm_iterations=5)}
@@ -53,6 +62,7 @@ from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch
 from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig, run_bundle_adjustment
 
 CASES = %(cases)r
+DEVICES = os.environ["DEVICES"]
 z = dict(np.load(os.environ["INPUTS"]))
 rank = int(os.environ["RANK"])
 initialize_distributed()
@@ -74,14 +84,14 @@ def run(prefix, match, ba, depth):
     for layout in ("dense", "track"):
         o = ba(*(z[f"ba_{layout}_{k}"] for k in ("pts", "poses", "intr", "cams", "op", "os",
                                                  "ouv", "ow", "imask")),
-               config=BAConfig(max_iterations=%(iters)d), dtype=torch.float64, device="cpu")
+               config=BAConfig(max_iterations=%(iters)d), dtype=torch.float64, device=DEVICES)
         for k in ("points", "poses", "intrinsics", "cost", "iterations", "table_kind"):
             out[f"{prefix}ba_{layout}_{k}"] = np.asarray(o[k])
     if depth:
         for name, kw in CASES.items():
             d, v = compute_depth_maps_sharded(z["grays"], z["dposes"], z["dintr"], z["nbr_idx"],
                                               z["nbr_valid"], z["planes"], window_radius=2,
-                                              max_cost=0.5, device="cpu", **kw)
+                                              max_cost=0.5, device=DEVICES, **kw)
             out[f"{prefix}depth_{name}"], out[f"{prefix}valid_{name}"] = d, v
     return out
 
@@ -108,7 +118,7 @@ def depth_per_view(**kw):
     return depth, valid
 
 
-out = run("", lambda *a, **k: match_pairs_sharded(*a, device="cpu", **k),
+out = run("", lambda *a, **k: match_pairs_sharded(*a, device=DEVICES, **k),
           run_bundle_adjustment_sharded, True)
 shutdown_distributed()
 if os.environ["WORLD_SIZE"] == "1":  # the one-rank references, same thread count
@@ -166,30 +176,31 @@ def _inputs():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{world: [rank outputs]} of the worker at each world size, and the
-    inputs."""
+    """{shape: [rank outputs]} of the worker at each shape (SHAPES), and
+    the inputs."""
     tmp = tmp_path_factory.mktemp("parallel")
     z = _inputs()
     np.savez(tmp / "inputs.npz", **z)
     script = _WORKER % {"cases": DEPTH_CASES, "iters": BA_ITERS}
     res = {}
-    for world in WORLDS:
-        pattern = str(tmp / f"w{world}_r%d.npz")
-        launch_ranks(["-c", script], world, env={"INPUTS": str(tmp / "inputs.npz"),
-                                                 "OUT": pattern}, timeout=180)
-        res[world] = [dict(np.load(pattern % r)) for r in range(world)]
+    for shape, (ranks, devices) in SHAPES.items():
+        pattern = str(tmp / f"w{shape}_r%d.npz")
+        launch_ranks(["-c", script], ranks, env={"INPUTS": str(tmp / "inputs.npz"),
+                                                 "OUT": pattern, "DEVICES": devices},
+                     timeout=180)
+        res[shape] = [dict(np.load(pattern % r)) for r in range(ranks)]
     return res, z
 
 
 def test_every_rank_returns_the_same_bits(runs):
     res, _ = runs
-    for world in WORLDS[1:]:
-        for rank in range(1, world):
+    for world in list(SHAPES)[1:]:
+        for rank in range(1, len(res[world])):
             for k, v in res[world][0].items():
                 np.testing.assert_array_equal(res[world][rank][k], v, err_msg=f"{world} {k}")
 
 
-@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("world", list(SHAPES))
 def test_sharded_matching_equals_match_pairs_batch(runs, world):
     res, _ = runs
     got, ref = res[world][0], res[1][0]
@@ -254,7 +265,7 @@ def test_sharded_ba_world1_bit_equal(runs, layout):
         np.testing.assert_array_equal(got[f"ba_{layout}_{k}"], got[f"ref_ba_{layout}_{k}"], k)
 
 
-@pytest.mark.parametrize("world", WORLDS[1:])
+@pytest.mark.parametrize("world", list(SHAPES)[1:])
 @pytest.mark.parametrize("layout", ["dense", "track"])
 def test_sharded_ba_within_tolerance(runs, world, layout):
     res, z = runs
@@ -285,7 +296,7 @@ def test_sharded_ba_vs_jax(runs):
         np.testing.assert_allclose(got["ba_dense_points"], oj["points"], atol=1e-5)
 
 
-@pytest.mark.parametrize("world", WORLDS[1:])
+@pytest.mark.parametrize("world", list(SHAPES)[1:])
 @pytest.mark.parametrize("case", list(DEPTH_CASES))
 def test_sharded_depth_maps_bit_equal_to_world1(runs, world, case):
     res, _ = runs
@@ -322,6 +333,58 @@ def test_sharded_depth_maps_vs_jax(runs, case):
     rel = np.abs(d_t - d_j)[both] / d_j[both]
     assert np.median(rel) <= 1e-4, np.median(rel)
     assert (v_t == v_j).mean() >= 0.98, (v_t == v_j).mean()
+
+
+@pytest.mark.parametrize("what", ["match", *DEPTH_CASES])
+def test_ranks_by_cards_bit_equal_to_world4(runs, what):
+    """2 ranks x 2 devices is 4 shards in rank-major order: the same blocks
+    of pairs and views as 4 ranks of one device, so the same bits."""
+    res, _ = runs
+    got, ref = res["2x2"][0], res[4][0]
+    keys = [k for k in ref if k.startswith("match_")] if what == "match" else [
+        "depth_" + what, "valid_" + what]
+    for k in keys:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("what", ["match", "ba", "sweep", "rect", "rect_sgm"])
+def test_ranks_by_cards_vs_jax_mesh4(runs, what):
+    """2 ranks x 2 devices against the JAX package's sharded functions on
+    make_mesh(4): the same shard count, its device order the process-major
+    order of the ranks' shards."""
+    from sfm_mvs_pipeline_tpu.parallel.mesh import make_mesh
+
+    res, z = runs
+    got, mesh = res["2x2"][0], make_mesh(4)
+    if what == "match":
+        from sfm_mvs_pipeline_tpu.parallel.matching import match_pairs_sharded as j_match
+
+        idx_j, mask_j = j_match(mesh, z["desc_i"], z["valid_i"], z["pairs"], backend="jnp")
+        vq = z["valid_i"][z["pairs"][:, 0]]
+        np.testing.assert_array_equal(got["match_i_mask"], np.asarray(mask_j))
+        np.testing.assert_array_equal(got["match_i_idx"][vq], np.asarray(idx_j)[vq])
+    elif what == "ba":
+        from sfm_mvs_pipeline_tpu.parallel.ba import run_bundle_adjustment_sharded as j_ba
+        from sfm_mvs_pipeline_tpu.sfm.ba import BAConfig as JConfig
+
+        args = [z[f"ba_dense_{k}"] for k in ("pts", "poses", "intr", "cams", "op", "os", "ouv",
+                                             "ow", "imask")]
+        oj = j_ba(mesh, *args, config=JConfig(max_iterations=BA_ITERS))
+        assert float(got["ba_dense_cost"]) == pytest.approx(oj["cost"], rel=1e-6)
+        np.testing.assert_allclose(got["ba_dense_poses"], oj["poses"], atol=1e-6)
+        np.testing.assert_allclose(got["ba_dense_points"], oj["points"], atol=1e-5)
+    else:
+        from sfm_mvs_pipeline_tpu.parallel.mvs import compute_depth_maps_sharded as j_depth
+
+        d_j, v_j = j_depth(mesh, z["grays"], z["dposes"], z["dintr"], z["nbr_idx"],
+                           z["nbr_valid"], z["planes"], window_radius=2, max_cost=0.5,
+                           **DEPTH_CASES[what])
+        d_t, v_t = got["depth_" + what], got["valid_" + what]
+        d_j, v_j = np.asarray(d_j), np.asarray(v_j)
+        both = v_t & v_j
+        assert both.mean() > 0.3
+        assert np.median(np.abs(d_t - d_j)[both] / d_j[both]) <= 1e-4
+        assert (v_t == v_j).mean() >= 0.98, (v_t == v_j).mean()
 
 
 def test_lm_solve_reduce_hook_is_exact():
