@@ -1,0 +1,8 @@
+"""Seconds a set in the program's span "mesh cluster" (mvs/mesh.py: vertex
+clustering on a world grid), from its non-synchronising stage spans."""
+
+from h100bench.readers import stage_per_set
+
+
+def read(ctx: dict) -> float | None:
+    return stage_per_set(ctx, "mesh cluster")

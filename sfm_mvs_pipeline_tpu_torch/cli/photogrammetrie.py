@@ -111,10 +111,13 @@ def print_usage() -> None:
   --stats                            write statistics CSVs + resource samples
   --artifacts                        keep debug artifacts (keypoints, matches,
                                      depth maps)
-  --stage-times                      time the stages with synchronising timers
-                                     and log each stage's wall, the time in
-                                     collectives and the kernels' launch
-                                     counts at the end
+  --stage-times                      time the stages with host-clock spans
+                                     (they do not synchronise the cards: a
+                                     stage's trailing device work falls to
+                                     the next) and log each stage's wall, the
+                                     time in collectives, the counters (LM
+                                     iterations, SfM starts) and the kernels'
+                                     launch counts at the end
   --help
 
 On one host, one process drives every card (the default). Across hosts,
@@ -206,13 +209,14 @@ def _main(args: AppArgs) -> int:
 
 
 def _log_stage_times() -> None:
-    """--stage-times: each stage's wall (collectives included) and each
-    kernel's launches in this process, one line each, and, where kernels
-    ran on the cards, each kernel's launches by card."""
+    """--stage-times: each stage's wall (collectives included), the
+    counters, and each kernel's launches in this process, one line each,
+    and, where kernels ran on the cards, each kernel's launches by card."""
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
 
     split = stage_timer.report()
     log.info("stage times: " + "; ".join(f"{k} {t:.3f} s x{n}" for k, (t, n) in split.items()))
+    log.info("counters: " + ", ".join(f"{k} {n}" for k, n in stage_timer.counters().items()))
     kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
                sgm_kernel.sgm_bidir, sgm_kernel.sgm_hpair, sgm_kernel.sgm_dir_acc,
                pm_kernel.pm_score_rect)
@@ -309,7 +313,8 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, mesh) -> int:
     if len(paths) < 2:
         log.error("need at least two images")
         return 2
-    imgs, (w, h) = load_gray_batch(paths)
+    with stage("load"):
+        imgs, (w, h) = load_gray_batch(paths)
 
     # ---- features; limit 0 = "unlimited" like cv::SIFT::create(0, ...)
     # (PhotogrammetrieCli.cpp:345, max 2^18)

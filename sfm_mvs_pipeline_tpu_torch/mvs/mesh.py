@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
+
 
 def depth_map_to_mesh(
     depth: np.ndarray,  # (H, W)
@@ -313,39 +315,46 @@ def mesh_from_depth_maps(
     device=None,
 ) -> dict:
     """Full meshing pass over all views; the back-projection runs on
-    `device` (default: the card), the rest is host numpy."""
+    `device` (default: the card), the rest is host numpy. Each step is a
+    span of its own ("mesh backproject", "mesh cluster", "mesh
+    components", "mesh holes", "mesh smooth"; utils/stage_timer.py)."""
     all_v, all_f, all_c = [], [], []
     off = 0
-    for i in range(len(depth_maps)):
-        if not valids[i].any():
-            continue
-        v, f, c = depth_map_to_mesh(
-            depth_maps[i], valids[i], poses[i], intr,
-            rgbs[i] if rgbs is not None else None, device=device,
-        )
-        all_v.append(v)
-        all_f.append(f + off)
-        if c is not None:
-            all_c.append(c)
-        off += len(v)
-    if not all_v:
-        return {"vertices": np.zeros((0, 3)), "faces": np.zeros((0, 3), int)}
-    V = np.concatenate(all_v)
-    F = np.concatenate(all_f)
-    C = np.concatenate(all_c) if all_c else None
+    with stage("mesh backproject"):
+        for i in range(len(depth_maps)):
+            if not valids[i].any():
+                continue
+            v, f, c = depth_map_to_mesh(
+                depth_maps[i], valids[i], poses[i], intr,
+                rgbs[i] if rgbs is not None else None, device=device,
+            )
+            all_v.append(v)
+            all_f.append(f + off)
+            if c is not None:
+                all_c.append(c)
+            off += len(v)
+        if not all_v:
+            return {"vertices": np.zeros((0, 3)), "faces": np.zeros((0, 3), int)}
+        V = np.concatenate(all_v)
+        F = np.concatenate(all_f)
+        C = np.concatenate(all_c) if all_c else None
     log(f"raw mesh: {len(V)} verts, {len(F)} faces")
 
-    # merge/decimate cell: median NN scale of the vertex soup
-    bbox = V.max(0) - V.min(0)
-    target = 1.5e-3 if decimate else 5e-4
-    cell = float(np.linalg.norm(bbox)) * target * (4 if decimate else 1)
-    V, F, C = cluster_vertices(V, F, C, max(cell, 1e-9))
+    with stage("mesh cluster"):
+        # merge/decimate cell: median NN scale of the vertex soup
+        bbox = V.max(0) - V.min(0)
+        target = 1.5e-3 if decimate else 5e-4
+        cell = float(np.linalg.norm(bbox)) * target * (4 if decimate else 1)
+        V, F, C = cluster_vertices(V, F, C, max(cell, 1e-9))
     log(f"clustered: {len(V)} verts, {len(F)} faces (cell {cell:.4g})")
 
-    V, F, C = remove_small_components(V, F, C)
+    with stage("mesh components"):
+        V, F, C = remove_small_components(V, F, C)
     log(f"small components removed: {len(V)} verts, {len(F)} faces")
-    V, F, C = close_holes(V, F, C, max_edges=close_holes_edges)
+    with stage("mesh holes"):
+        V, F, C = close_holes(V, F, C, max_edges=close_holes_edges)
     log(f"holes closed: {len(V)} verts, {len(F)} faces")
-    V = laplacian_smooth(V, F, smooth_iters)
+    with stage("mesh smooth"):
+        V = laplacian_smooth(V, F, smooth_iters)
     log(f"cleaned: {len(V)} verts, {len(F)} faces")
     return {"vertices": V, "faces": F, "colors": C}

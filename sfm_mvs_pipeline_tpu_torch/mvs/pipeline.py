@@ -228,8 +228,9 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             device=dev,
         )
         log(f"fused dense cloud: {len(fused['points'])} points")
-        write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
-                         fused["points"], fused["colors"], fused["normals"])
+        with stage("fusion write"):
+            write_ply_points(os.path.join(out_dir, "pointcloud_dense.ply"),
+                             fused["points"], fused["colors"], fused["normals"])
 
     results["dense"] = fused
     if cfg.mesh:
@@ -399,8 +400,9 @@ def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, resul
 
         with stage("texture"):
             tex = build_texture_atlas(mesh["vertices"], mesh["faces"], poses, intr, rgbs)
-            write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
-                                    tex["atlas"], colors=mesh.get("colors"))
+            with stage("texture write"):
+                write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
+                                        tex["atlas"], colors=mesh.get("colors"))
         log(f"textured mesh: atlas {tex['atlas'].shape[0]}x{tex['atlas'].shape[1]}")
         results["texture"] = tex
     else:

@@ -473,8 +473,6 @@ class Shards:
             self.mesh = make_mesh(devices)
             self.held, self.count = list(range(len(self.mesh))), len(self.mesh)
             self.kind = "devices"
-        if len(self.mesh) > 1:
-            stage_timer.watch(self.mesh.devices)
         self.devices = self.mesh.devices
         self.first = self.mesh.first
 
@@ -510,7 +508,7 @@ class Shards:
         the calling thread. Several (a mesh, or a rank's devices) run each
         in a thread of its own under its card: the first shard of a card
         on the caller's current stream there, any other on a stream of its
-        own, each tagged in the log and timed on its own stream
+        own, each tagged in the log and its spans with its shard
         (stage_timer.merge keeps each stage's longest shard). A failing
         shard breaks the others' collectives, and the first failure is
         raised; under torchrun the rank then fails, and with it the
@@ -537,7 +535,7 @@ class Shards:
                     ctx.enter_context(torch.cuda.device(dev))
                     ctx.enter_context(torch.cuda.stream(streams[i]))
                 ctx.enter_context(logging.shard_tag(self.held[i], self.count, dev))
-                ctx.enter_context(stage_timer.shard_thread(timed))
+                ctx.enter_context(stage_timer.shard_thread(timed, self.held[i]))
                 try:
                     out = fn(Shard(self, i, rv), *(p[i] for p in per_shard))
                 except BaseException:

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 
 import numpy as np
 import torch
@@ -39,6 +38,7 @@ from sfm_mvs_pipeline_tpu_torch.models.cameras import (
     reprojection_residuals,
 )
 from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count
 
 # torch's forward-mode AD levels are process-wide, not per thread: the
 # shard threads of a mesh (parallel/ba.py) take their Jacobians one at a
@@ -481,7 +481,6 @@ def run_bundle_adjustment(
     config: BAConfig | None = None,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str | None = None,
-    verbose: bool = False,
 ) -> dict:
     """LM bundle adjustment. Inputs are host numpy arrays; the work runs in
     `dtype` on `device` (default: the card; raises without one). Optimises every
@@ -493,14 +492,13 @@ def run_bundle_adjustment(
     dev = resolve_device(device)
     n_shots = poses.shape[0]
     P = points.shape[0]
-    t0 = time.perf_counter()
     grid = None
     if P * n_shots <= DENSE_GRID_MAX_SLOTS:
         grid = pack_dense_obs(obs_point, obs_shot, obs_uv, obs_w, P, n_shots)
     tab = build_track_table(obs_point, obs_w, P) if grid is None else None
     pts, pos, K, cost, it, conv, lam, table_kind = lm_solve(
         points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_w, intr_mask,
-        pose_free, grid, tab, config, dtype, dev, verbose, t0)
+        pose_free, grid, tab, config, dtype, dev)
     return {
         "points": pts.cpu().numpy().astype(points.dtype),
         "poses": pos.cpu().numpy().astype(poses.dtype),
@@ -514,21 +512,20 @@ def run_bundle_adjustment(
 
 
 def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_w, intr_mask,
-             pose_free, grid, track_tab, config, dtype, dev, verbose=False, t0=None,
-             reduce=None):
+             pose_free, grid, track_tab, config, dtype, dev, reduce=None):
     """The LM loop of run_bundle_adjustment on host arrays: the dense layout
     when `grid` = pack_dense_obs(...) is given, else the track layout on
     `track_tab`. `reduce` (None on one rank) sums a tensor over the ranks:
     the sharded path passes it so every build and every cost sums the ranks'
     point shards before damping and before the accept test (parallel/ba.py).
     Returns device tensors (points, poses, intrinsics, cost), iterations,
-    converged, lambda and the table kind."""
+    converged, lambda and the table kind; the iterations also go to the
+    "lm iterations" counter (utils/stage_timer.py)."""
     cfg = config or BAConfig()
     if cfg.solver not in ("device", "host"):
         raise ValueError(f"unknown BA solver {cfg.solver!r} (expected device|host)")
     n_shots = poses.shape[0]
     n_cams = intr.shape[0]
-    t0 = time.perf_counter() if t0 is None else t0
     table_kind = "dense" if grid is not None else "track"
 
     def T(x, d=dtype):
@@ -567,8 +564,6 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
         return c if reduce is None else reduce(c.reshape(1))[0]
 
     solve = equilibrated_cholesky_solve if cfg.solver == "device" else _host_solve
-    if verbose:
-        print(f"  BA[{cfg.solver},{table_kind}]: setup {time.perf_counter() - t0:.3f}s", flush=True)
 
     cost = residual_cost(pts, pos, K)
     lam = torch.as_tensor(cfg.init_lambda, dtype=dtype, device=dev)
@@ -597,6 +592,5 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
         it += 1
         if bool(done):  # the loop's one host read: the stop test
             break
-    if verbose:
-        print(f"  BA: {it} iterations in {time.perf_counter() - t0:.3f}s", flush=True)
+    count("lm iterations", it)
     return pts, pos, K, cost, it, conv, lam, table_kind

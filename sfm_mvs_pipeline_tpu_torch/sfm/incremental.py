@@ -53,6 +53,7 @@ from sfm_mvs_pipeline_tpu_torch.ops.triangulate import triangulate_pair
 from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
 from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
 from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig, run_bundle_adjustment
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count, stage
 
 
 @dataclasses.dataclass
@@ -194,47 +195,49 @@ def reconstruct(
     log(f"matching {len(pairs)} pairs")
     pairs = np.asarray(pairs, np.int32).reshape(-1, 2)
     pairs_d = torch.as_tensor(pairs, device=dev)
-    # +-1 descriptors go as bf16, which holds them exactly, to K1's
-    # tensor-core route (the JAX package's bf16 cast for its MXU)
-    desc_d = torch.as_tensor(scene.descriptors, device=dev,
-                             dtype=torch.bfloat16 if cfg.binary_descriptors else torch.float32)
     match = M.match_pairs_batch
     n_shards, n_ranks = shards.count, process_count()
     if n_shards > 1 and len(pairs) >= n_shards:
         log(f"pair-sharded matching over {n_shards} {shards.kind}")
         match = functools.partial(match_pairs_sharded, device=shards.devices)
-    midx, mmask, mdist = match(
-        desc_d,
-        torch.as_tensor(scene.feat_valid, device=dev),
-        pairs_d,
-        ratio=cfg.lowe_ratio,
-        distinct=cfg.distinct_matches,
-        backend=cfg.matcher_backend,
-        method=cfg.matcher_method,
-        with_distance=True,
-        exact=cfg.exact_match and not cfg.binary_descriptors,
-    )
-    del desc_d
-    midx_d, mmask_d = midx, mmask
-    midx = midx.cpu().numpy()
-    mmask = mmask.cpu().numpy()
-    mdist = mdist.cpu().numpy()
+    with stage("match"):
+        # +-1 descriptors go as bf16, which holds them exactly, to K1's
+        # tensor-core route (the JAX package's bf16 cast for its MXU)
+        desc_d = torch.as_tensor(scene.descriptors, device=dev,
+                                 dtype=torch.bfloat16 if cfg.binary_descriptors else torch.float32)
+        midx, mmask, mdist = match(
+            desc_d,
+            torch.as_tensor(scene.feat_valid, device=dev),
+            pairs_d,
+            ratio=cfg.lowe_ratio,
+            distinct=cfg.distinct_matches,
+            backend=cfg.matcher_backend,
+            method=cfg.matcher_method,
+            with_distance=True,
+            exact=cfg.exact_match and not cfg.binary_descriptors,
+        )
+        del desc_d
+        midx_d, mmask_d = midx, mmask
+        midx = midx.cpu().numpy()
+        mmask = mmask.cpu().numpy()
+        mdist = mdist.cpu().numpy()
     counts = mmask.sum(axis=1)
     live = counts >= cfg.min_match_count  # ref min-match filter (SfM.cpp:566-570)
     log(f"pairs with >= {cfg.min_match_count} matches: {int(live.sum())}")
 
     # ---- 2. homography inlier ratios (pair ordering metric), on the
     # float32 keypoints like the JAX package
-    kp32 = torch.as_tensor(scene.keypoints, dtype=torch.float32, device=dev)
-    ratio_l = []
-    for c in range(0, len(pairs), _RATIO_CHUNK):
-        pc = pairs_d[c : c + _RATIO_CHUNK].long()
-        uv1 = kp32[pc[:, 0]]
-        uv2 = take(kp32[pc[:, 1]], midx_d[c : c + _RATIO_CHUNK].long()[..., None])[..., 0, :]
-        ratio_l.append(
-            homography_inlier_ratio(gen, uv1, uv2, mmask_d[c : c + _RATIO_CHUNK], thr_match)
-        )
-    ratios = torch.cat(ratio_l).cpu().numpy() if ratio_l else np.zeros(0)
+    with stage("pair ratios"):
+        kp32 = torch.as_tensor(scene.keypoints, dtype=torch.float32, device=dev)
+        ratio_l = []
+        for c in range(0, len(pairs), _RATIO_CHUNK):
+            pc = pairs_d[c : c + _RATIO_CHUNK].long()
+            uv1 = kp32[pc[:, 0]]
+            uv2 = take(kp32[pc[:, 1]], midx_d[c : c + _RATIO_CHUNK].long()[..., None])[..., 0, :]
+            ratio_l.append(
+                homography_inlier_ratio(gen, uv1, uv2, mmask_d[c : c + _RATIO_CHUNK], thr_match)
+            )
+        ratios = torch.cat(ratio_l).cpu().numpy() if ratio_l else np.zeros(0)
     ratios = np.where(live, ratios, -1.0)
 
     intr_d = torch.as_tensor(scene.intrinsics, dtype=dtype, device=dev)
@@ -249,8 +252,9 @@ def reconstruct(
     stats = {"baseline": None, "ba_runs": 0, "views": 0}
     guard = False  # run_ba raises _BogusStart on bogus intrinsics while set
 
-    def run_ba():
-        nonlocal intr_d
+    @stage("ba")
+    def adjust() -> dict:
+        """One bundle adjustment of the scene as it stands, logged."""
         model = CAMERA_MODELS[scene.camera_model]
         imask = np.zeros((len(scene.intrinsics), 7))
         imask[:, list(model.opt_mask)] = 1.0
@@ -273,6 +277,19 @@ def reconstruct(
             dtype=dtype,
             device=dev,
         )
+        stats["ba_runs"] += 1
+        stats["table_kind"] = out["table_kind"]
+        log(  # an abandoned start's adjustments are logged too
+            f"BA #{stats['ba_runs']}: cost {out['cost']:.3g} "
+            f"({out['iterations']} iters, rms "
+            f"{np.sqrt(2 * out['cost'] / n_live):.3f} px, table {out['table_kind']})"
+            + (f", point-sharded over {n_ranks} ranks" if sharded else "")
+        )
+        return out
+
+    def run_ba():
+        nonlocal intr_d
+        out = adjust()  # the guard raises after the "ba" span has ended
         if (guard and scene.recovered.sum() >= _GUARD_MIN_VIEWS
                 and bogus_intrinsics(out["intrinsics"], max_dim).any()):
             raise _BogusStart(np.round(out["intrinsics"][:, :5], 3).tolist())
@@ -282,14 +299,6 @@ def reconstruct(
         # later PnP / pair poses / triangulations must see the intrinsics
         # the points were just optimised under
         intr_d = torch.as_tensor(scene.intrinsics, dtype=dtype, device=dev)
-        stats["ba_runs"] += 1
-        stats["table_kind"] = out["table_kind"]
-        log(
-            f"BA #{stats['ba_runs']}: cost {out['cost']:.3g} "
-            f"({out['iterations']} iters, rms "
-            f"{np.sqrt(2 * out['cost'] / n_live):.3f} px, table {out['table_kind']})"
-            + (f", point-sharded over {n_ranks} ranks" if sharded else "")
-        )
 
     def _full_idx(a, b):
         ia, ib, _ = pair_matches[(a, b)]
@@ -309,6 +318,7 @@ def reconstruct(
         dist[ia] = dd
         return dist
 
+    @stage("pair pose")
     def pairs_fused(pair_list, use_rel, thresh):
         """E-vs-H pose + triangulation for a set of pairs in one batched
         call. Returns host (pose_rel, em, pts, keep, n_inl, masks)."""
@@ -343,6 +353,7 @@ def reconstruct(
             em.sum(dim=1).cpu().numpy(), masks,
         )
 
+    @stage("tracks")
     def merge_pair_points(a, b, pts, keep):
         """Host-side track bookkeeping for one pair's triangulated points
         (the reference's mergePointcloudElement3d2d; Scene.cpp:470-561)."""
@@ -473,10 +484,11 @@ def reconstruct(
             if not remaining_shots:
                 break
             best_shot, best_n, best_corr = -1, -1, None
-            for s in remaining_shots:
-                pids, fids, uv = scene.find_2d3d(s, pair_matches)
-                if len(pids) > best_n:
-                    best_shot, best_n, best_corr = s, len(pids), (pids, fids, uv)
+            with stage("tracks"):
+                for s in remaining_shots:
+                    pids, fids, uv = scene.find_2d3d(s, pair_matches)
+                    if len(pids) > best_n:
+                        best_shot, best_n, best_corr = s, len(pids), (pids, fids, uv)
             if best_n <= 0:
                 break
             s = best_shot
@@ -488,12 +500,13 @@ def reconstruct(
             U = torch.as_tensor(uv, dtype=dtype, device=dev)
             V = torch.ones(len(pids), dtype=torch.bool, device=dev)
             intr_s = intr_d[int(scene.cam_of_shot[s])]
-            try:
-                pose, inl, ratio = solve_pnp_ransac(gen, X, U, intr_s, V, thr_pose, k_hyp=256)
-                ratio = float(ratio)
-            except torch.linalg.LinAlgError as e:
-                log(f"PnP failed: {e}")
-                ratio = -1.0
+            with stage("pnp"):
+                try:
+                    pose, inl, ratio = solve_pnp_ransac(gen, X, U, intr_s, V, thr_pose, k_hyp=256)
+                    ratio = float(ratio)
+                except torch.linalg.LinAlgError as e:
+                    log(f"PnP failed: {e}")
+                    ratio = -1.0
             if ratio < cfg.min_pose_inlier_ratio:
                 log(f"pose inlier ratio too low ({ratio:.3f}); dropping shot {s}")
                 for p in [p for p in queue if s in p]:
@@ -508,17 +521,18 @@ def reconstruct(
             # view (one per feature, untracked feature, live point), so BA
             # constrains the new pose even when adjoining pairs contribute little
             sel = np.nonzero(inl.cpu().numpy())[0]
-            if len(sel):
-                p_sel = np.asarray(pids)[sel]
-                f_sel = np.asarray(fids)[sel]
-                f_sel, first = np.unique(f_sel, return_index=True)
-                p_sel = p_sel[first]
-                ok = scene.point_valid[p_sel] & (scene.point_of_feat[s, f_sel] < 0)
-                if ok.any():
-                    scene.add_observations(
-                        p_sel[ok], np.full(int(ok.sum()), s), f_sel[ok],
-                        scene.keypoints[s, f_sel[ok]],
-                    )
+            with stage("tracks"):
+                if len(sel):
+                    p_sel = np.asarray(pids)[sel]
+                    f_sel = np.asarray(fids)[sel]
+                    f_sel, first = np.unique(f_sel, return_index=True)
+                    p_sel = p_sel[first]
+                    ok = scene.point_valid[p_sel] & (scene.point_of_feat[s, f_sel] < 0)
+                    if ok.any():
+                        scene.add_observations(
+                            p_sel[ok], np.full(int(ok.sum()), s), f_sel[ok],
+                            scene.keypoints[s, f_sel[ok]],
+                        )
 
             # adjoining recovered pairs (ref: SfM.cpp:333-371), in one call
             adjoining = [
@@ -534,7 +548,8 @@ def reconstruct(
                     done_pairs.append((a, b))
             # collapse unlinked duplicate tracks by 3D distance
             # (mergePointcloudElement, Scene.cpp:435-468)
-            n_spatial = scene.merge_close_points(cfg.point_merge_distance)
+            with stage("tracks"):
+                n_spatial = scene.merge_close_points(cfg.point_merge_distance)
             if n_spatial:
                 log(f"spatial merge: {n_spatial} duplicate tracks collapsed")
             if cfg.ba_every_view:
@@ -553,6 +568,7 @@ def reconstruct(
     attempt = 0
     while True:
         attempt += 1
+        count("sfm starts")
         guard = attempt < _BASELINE_ATTEMPTS
         skip = {p for p, n in failed_starts.items() if n >= _TRIES_PER_PAIR} if guard else set()
         for k, v in fresh.items():
