@@ -7,8 +7,13 @@ intrinsics blocks, LM + DENSE_SCHUR; ref: BundleAdjustment.cpp:50-93).
 Residuals r = project(pose[shot], intr[cam], X[point]) - uv, weighted.
 The normal equations eliminate the points (block-diagonal 3x3 Hpp) and the
 reduced camera system (D = 6 S + 7 C) is solved by an equilibrated
-Cholesky on the device; the LM loop is a Python loop whose accept/reject
-stays on the device, with one host read per iteration for the stop test.
+Cholesky on the device. One LM iteration is one step function that updates
+the solver's device state in place, accept/reject included, and the loop
+reads one flag, the stop test, on the host after each. On one CUDA card
+with the device solver the step is captured once per solve as a CUDA graph
+and each iteration is one replay of it plus that read; on the CPU, with the
+host solver and on the point-sharded route (parallel/ba.py) the loop calls
+the step eagerly (lm_solve).
 
 Two observation layouts, chosen per call and reported as `table_kind`:
   * "dense": a (P, S) visibility grid, Jacobians laid out point-minor —
@@ -24,6 +29,7 @@ Jacobians come from torch.func.jacfwd, as the JAX package uses jax.jacfwd.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 
 import numpy as np
@@ -393,9 +399,9 @@ def _dense_jacobians(points, poses, intr, cam_of_shot, uv_ps, w_ps):
     w_f = w_ps.T.reshape(S * P)
     # dead slots (w == 0) may hold points at z ~ 0 whose Jacobian overflows;
     # evaluate them at a benign input — their weighted rows are zero anyway
+    # (fill_, not a set from a host scalar: a CUDA graph captures no host copy)
     benign = torch.zeros((10, 1), dtype=v.dtype, device=v.device)
-    benign[2, 0] = 1.0
-    benign[3, 0] = 1.0
+    benign[2:4].fill_(1.0)
     v = torch.where((w_f > 0)[None, :], v, benign)
     r = vmap(_res_cam, in_dims=(1, 1, 0), out_dims=1)(v, uv_f, w_f)  # (2, S*P)
     Jv = vmap(jacfwd(_res_cam), in_dims=(1, 1, 0), out_dims=2)(v, uv_f, w_f).to(v.dtype)
@@ -518,9 +524,16 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
     `track_tab`. `reduce` (None on one rank) sums a tensor over the ranks:
     the sharded path passes it so every build and every cost sums the ranks'
     point shards before damping and before the accept test (parallel/ba.py).
-    Returns device tensors (points, poses, intrinsics, cost), iterations,
-    converged, lambda and the table kind; the iterations also go to the
-    "lm iterations" counter (utils/stage_timer.py)."""
+
+    Each iteration is one call of a step that updates the device state
+    (points, poses, intrinsics, cost, lambda, converged, done) in place,
+    then one host read of `done`. Where _graph_engages (a CUDA device, no
+    `reduce`, the device solver) the step is captured as one CUDA graph at
+    the first iteration and every iteration replays it; elsewhere the loop
+    calls it eagerly. Returns device tensors (points, poses, intrinsics,
+    cost), iterations, converged, lambda and the table kind; the iterations
+    also go to the "lm iterations" counter and, on the graph route, to
+    "ba graph iterations" (utils/stage_timer.py)."""
     cfg = config or BAConfig()
     if cfg.solver not in ("device", "host"):
         raise ValueError(f"unknown BA solver {cfg.solver!r} (expected device|host)")
@@ -528,8 +541,8 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
     n_cams = intr.shape[0]
     table_kind = "dense" if grid is not None else "track"
 
-    def T(x, d=dtype):
-        return torch.as_tensor(np.asarray(x), dtype=d, device=dev)
+    def T(x, d=dtype):  # a copy: the state is updated in place
+        return torch.tensor(np.asarray(x), dtype=d, device=dev)
 
     pts = T(points)
     pos = T(poses)
@@ -568,8 +581,10 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
     cost = residual_cost(pts, pos, K)
     lam = torch.as_tensor(cfg.init_lambda, dtype=dtype, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
-    it = 0
-    while it < cfg.max_iterations:
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step():
+        """One LM iteration, in place on (pts, pos, K, cost, lam, conv, done)."""
         S_red, rhs, backsub, _ = build(pts, pos, K, lam)
         dX, dpose, dintr = backsub(solve(S_red, rhs))
         new_pts = pts + dX
@@ -582,15 +597,80 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
         new_lam = torch.where(
             accept, torch.clamp(lam * cfg.lambda_down, min=cfg.min_lambda), lam * cfg.lambda_up
         )
-        pts = torch.where(accept, new_pts, pts)
-        pos = torch.where(accept, new_pos, pos)
-        K = torch.where(accept, new_K, K)
-        cost = torch.where(accept, new_cost, cost)
-        done = step_conv | (~accept & (new_lam > cfg.max_lambda))
-        lam = new_lam
-        conv = conv | step_conv
-        it += 1
-        if bool(done):  # the loop's one host read: the stop test
-            break
+        done.copy_(step_conv | (~accept & (new_lam > cfg.max_lambda)))
+        for old, new in ((pts, new_pts), (pos, new_pos), (K, new_K), (cost, new_cost)):
+            old.copy_(torch.where(accept, new, old))
+        lam.copy_(new_lam)
+        conv.bitwise_or_(step_conv)
+
+    graph = _StepGraph(step, dev) if _graph_engages(dev, reduce, cfg) else None
+    run = step if graph is None else graph
+    it = 0
+    try:
+        while it < cfg.max_iterations:
+            run()
+            it += 1
+            if bool(done):  # the loop's one host read: the stop test
+                break
+    finally:
+        if graph is not None:
+            graph.close()
     count("lm iterations", it)
+    if graph is not None:
+        count("ba graph iterations", it)
     return pts, pos, K, cost, it, conv, lam, table_kind
+
+
+# ------------------------------------------------------ the step as a graph
+def _graph_engages(dev, reduce, cfg: BAConfig) -> bool:
+    """Whether lm_solve replays its step as a CUDA graph: on a CUDA device,
+    on one rank (the sharded route's `reduce` stays eager) and with the
+    device solver (the host solver reads the host by design)."""
+    return torch.device(dev).type == "cuda" and reduce is None and cfg.solver == "device"
+
+
+class _StepGraph:
+    """lm_solve's step as one CUDA graph on card `dev`: captured at the
+    first call into a memory pool of its own, replayed at every call.
+    close() releases the graph, and dropping the pool returns its memory
+    to the card (a graph's default pool would stay reserved)."""
+
+    def __init__(self, step, dev):
+        self.step, self.dev = step, dev
+        self.graph = self.pool = None
+
+    def __call__(self) -> None:
+        with torch.cuda.device(self.dev):
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+
+    def _capture(self) -> None:
+        """Record the launches of one call of the step on a side stream;
+        capturing runs none of them. Not torch.cuda.graph(...): its entry
+        synchronises and empties the allocator's cache, once a solve."""
+        stream = _capture_stream(torch.cuda.current_device())
+        self.pool, self.graph = torch.cuda.MemPool(), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            # this thread's cuBLAS and cuSOLVER handles and this stream's
+            # workspaces are made eagerly, outside the capture and its pool
+            eye = torch.eye(2, device=stream.device)
+            torch.linalg.solve_triangular(torch.linalg.cholesky_ex(eye)[0], eye @ eye, upper=False)
+            self.graph.capture_begin(pool=self.pool.id, capture_error_mode="thread_local")
+            try:
+                self.step()
+            finally:
+                self.graph.capture_end()
+
+    def close(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.pool = None
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(index: int) -> torch.cuda.Stream:
+    """The side stream that captures lm_solve's steps on card `index`, one
+    a card, so its cuBLAS workspace is made once."""
+    with torch.cuda.device(index):
+        return torch.cuda.Stream()

@@ -94,3 +94,42 @@ def test_track_table_parity():
     obs_point = np.array([0, 0, 1, 2, 2, 2, 4])
     obs_w = np.array([1, 1, 1, 1, 0, 1.0, 1])
     np.testing.assert_array_equal(t_track_table(obs_point, obs_w, 5), j_track_table(obs_point, obs_w, 5))
+
+
+@pytest.mark.parametrize(
+    "dev,reduce,solver,engages",
+    [("cuda:0", None, "device", True), ("cuda", None, "device", True),
+     ("cpu", None, "device", False), ("cuda:0", lambda x: x, "device", False),
+     ("cuda:0", None, "host", False)],
+    ids=["cuda", "cuda-unindexed", "cpu", "reduce", "host-solver"],
+)
+def test_ba_graph_engage_rule(dev, reduce, solver, engages):
+    """The step replays as a CUDA graph on one CUDA card with the device
+    solver; the CPU, the sharded route's reduce and the host solver keep
+    the eager loop."""
+    from sfm_mvs_pipeline_tpu_torch.sfm.ba import _graph_engages
+
+    assert _graph_engages(torch.device(dev), reduce, TConfig(solver=solver)) is engages
+
+
+@pytest.mark.parametrize("solver", ["device", "host"])
+def test_ba_graph_counter_on_the_cpu(synthetic_scene, rng, solver):
+    """On the CPU every iteration runs eagerly: "lm iterations" counts
+    them, "ba graph iterations" stays absent, and the inputs are left as
+    given (the solver's state is a copy, updated in place)."""
+    from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
+
+    args, mask, pose_free = _problem(synthetic_scene, rng)
+    before = [np.array(a, copy=True) for a in args]
+    stage_timer.enable()
+    try:
+        out = t_ba(*args, intr_mask=mask, pose_free=pose_free,
+                   config=TConfig(max_iterations=5, solver=solver), dtype=torch.float64,
+                   device="cpu")
+    finally:
+        stage_timer.enable(False)
+    counted = stage_timer.counters()
+    assert counted["lm iterations"] == out["iterations"] > 0
+    assert "ba graph iterations" not in counted
+    for a, b in zip(args, before):
+        np.testing.assert_array_equal(a, b)
