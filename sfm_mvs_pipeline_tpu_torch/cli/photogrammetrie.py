@@ -464,7 +464,9 @@ def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, mesh) -> int:
 def _extract_features(detector: str, imgs_d, cap_env: int):
     """(keypoints, descriptors, valid) as host arrays: SIFT with adaptive
     capacity, or ORB at the full capacity with its packed bits expanded to
-    +-1 floats (the JAX package's ORB branch)."""
+    +-1 floats (the JAX package's ORB branch; the expansion under the span
+    "orb describe", and the counters "orb keypoints", the valid keypoints
+    of every view, and "orb slots", capacity times views)."""
     if detector == "sift":
         from sfm_mvs_pipeline_tpu_torch.ops.sift import sift_features
 
@@ -484,9 +486,13 @@ def _extract_features(detector: str, imgs_d, cap_env: int):
         from sfm_mvs_pipeline_tpu_torch.ops.orb import orb_features
 
         feats = orb_features(imgs_d, max_features=cap_env)
-        descs = expand_binary_descriptors(feats["descriptors"])
-    return (feats["keypoints"].cpu().numpy(), descs.cpu().numpy(),
-            feats["valid"].cpu().numpy())
+        with stage_timer.stage("orb describe"):
+            descs = expand_binary_descriptors(feats["descriptors"])
+    valid = feats["valid"].cpu().numpy()
+    if detector == "orb":
+        stage_timer.count("orb keypoints", int(valid.sum()))
+        stage_timer.count("orb slots", int(valid.size))
+    return feats["keypoints"].cpu().numpy(), descs.cpu().numpy(), valid
 
 
 def _feature_cap(limit: int, w: int, h: int, warn_requested: int | None = None) -> int:

@@ -24,6 +24,7 @@ import torch.nn.functional as TF
 from sfm_mvs_pipeline_tpu_torch.ops.matching import packbits_little
 from sfm_mvs_pipeline_tpu_torch.ops.sift import _bilinear, gaussian_blur
 from sfm_mvs_pipeline_tpu_torch.ops.topk import select_top_k
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
 
 # FAST circle of radius 3 (the standard 16-pixel Bresenham ring), (dx, dy)
 _FAST_RING = np.array(
@@ -210,7 +211,12 @@ def orb_features(
     keypoints differ; orientation and descriptors are sampled at the whole
     pixels either way. Coarse levels carry most corners on smooth textures
     (levels 4-7 hold ~3/4 of them at the texel scale of the 1080p render of
-    utils/synth.py), and there a whole level pixel is 2.1-3.6 image pixels."""
+    utils/synth.py), and there a whole level pixel is 2.1-3.6 image pixels.
+
+    Spans (utils/stage_timer.py, non-synchronising): "orb detect" holds
+    each level's FAST test, Harris response, selection, keypoints and the
+    next level's resize, and the final selection over the levels; "orb
+    describe" each level's orientation and BRIEF bits, and the packing."""
     if images.dtype == torch.uint8:
         images = images.to(torch.float32) / 255.0
     b, h, w = images.shape
@@ -223,30 +229,36 @@ def orb_features(
         hl, wl = cur.shape[-2:]
         if min(hl, wl) < 2 * border + 8:
             break
-        harris = _harris(cur)
-        score = _nms3x3(_score(_fast_corners(cur, threshold), harris))
-        yy = torch.arange(hl, device=dev)[:, None]
-        xx = torch.arange(wl, device=dev)[None, :]
-        inb = (yy >= border) & (yy < hl - border) & (xx >= border) & (xx < wl - border)
-        score = torch.where(inb[None], score, torch.full_like(score, float("-inf")))
+        with stage("orb detect"):
+            harris = _harris(cur)
+            score = _nms3x3(_score(_fast_corners(cur, threshold), harris))
+            yy = torch.arange(hl, device=dev)[:, None]
+            xx = torch.arange(wl, device=dev)[None, :]
+            inb = (yy >= border) & (yy < hl - border) & (xx >= border) & (xx < wl - border)
+            score = torch.where(inb[None], score, torch.full_like(score, float("-inf")))
 
-        k_lev = min(max(max_features // max(1, lev + 1), 64), hl * wl)
-        vals, idx = select_top_k(score.reshape(b, -1), k_lev)
-        ys = torch.div(idx, wl, rounding_mode="floor").to(torch.float32)
-        xs = (idx % wl).to(torch.float32)
-        valid = torch.isfinite(vals)
+            k_lev = min(max(max_features // max(1, lev + 1), 64), hl * wl)
+            vals, idx = select_top_k(score.reshape(b, -1), k_lev)
+            ys = torch.div(idx, wl, rounding_mode="floor").to(torch.float32)
+            xs = (idx % wl).to(torch.float32)
+            valid = torch.isfinite(vals)
 
-        ang = torch.stack([_orientation(cur[i], xs[i], ys[i]) for i in range(b)])
-        blurred = gaussian_blur(cur, 2.0)  # classic BRIEF smoothing
-        bits = torch.stack([_brief(blurred[i], xs[i], ys[i], ang[i]) for i in range(b)])
+            lvl_scale = scale_factor**lev
+            if subpixel:
+                ox, oy = _peak_offsets(harris, xs, ys)
+                kps = torch.stack([(xs + ox + 0.5) * (w / wl) - 0.5,
+                                   (ys + oy + 0.5) * (h / hl) - 0.5], dim=-1)
+            else:
+                kps = torch.stack([xs, ys], dim=-1) * lvl_scale
+            nh = int(round(cur.shape[-2] / scale_factor))
+            nw = int(round(cur.shape[-1] / scale_factor))
+            nxt = resize_linear(cur, nh, nw)
 
-        lvl_scale = scale_factor**lev
-        if subpixel:
-            ox, oy = _peak_offsets(harris, xs, ys)
-            kps = torch.stack([(xs + ox + 0.5) * (w / wl) - 0.5,
-                               (ys + oy + 0.5) * (h / hl) - 0.5], dim=-1)
-        else:
-            kps = torch.stack([xs, ys], dim=-1) * lvl_scale
+        with stage("orb describe"):
+            ang = torch.stack([_orientation(cur[i], xs[i], ys[i]) for i in range(b)])
+            blurred = gaussian_blur(cur, 2.0)  # classic BRIEF smoothing
+            bits = torch.stack([_brief(blurred[i], xs[i], ys[i], ang[i]) for i in range(b)])
+
         per_level.append({
             "keypoints": kps,
             "angle": ang,
@@ -255,24 +267,20 @@ def orb_features(
             "valid": valid,
             "bits": bits,
         })
-        nh = int(round(cur.shape[-2] / scale_factor))
-        nw = int(round(cur.shape[-1] / scale_factor))
-        cur = resize_linear(cur, nh, nw)
+        cur = nxt
 
-    merged = {k: torch.cat([p[k] for p in per_level], dim=1) for k in per_level[0]}
-    score = torch.where(merged["valid"], merged["response"],
-                        torch.full_like(merged["response"], float("-inf")))
-    _, top = select_top_k(score, max_features)
+    with stage("orb detect"):
+        merged = {k: torch.cat([p[k] for p in per_level], dim=1) for k in per_level[0]}
+        score = torch.where(merged["valid"], merged["response"],
+                            torch.full_like(merged["response"], float("-inf")))
+        _, top = select_top_k(score, max_features)
 
-    def take(a):
-        return torch.gather(a, 1, top.reshape(b, -1, *([1] * (a.dim() - 2))).expand(
-            -1, -1, *a.shape[2:]))
+        def take(a):
+            return torch.gather(a, 1, top.reshape(b, -1, *([1] * (a.dim() - 2))).expand(
+                -1, -1, *a.shape[2:]))
 
-    return {
-        "keypoints": take(merged["keypoints"]),
-        "angle": take(merged["angle"]),
-        "response": take(merged["response"]),
-        "scale": take(merged["scale"]),
-        "valid": take(merged["valid"]) & torch.isfinite(take(score)),
-        "descriptors": packbits_little(take(merged["bits"])),
-    }
+        out = {k: take(merged[k]) for k in ("keypoints", "angle", "response", "scale")}
+        out["valid"] = take(merged["valid"]) & torch.isfinite(take(score))
+    with stage("orb describe"):
+        out["descriptors"] = packbits_little(take(merged["bits"]))
+    return out

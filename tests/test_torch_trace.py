@@ -9,7 +9,10 @@ events with. A small reconstruct (insel at 240x135, ORB, seed 0: its first
 start is abandoned, tests/test_torch_sfm_restart.py) reports the six sparse
 spans, an "lm iterations" counter equal to its logged BA iterations and an
 "sfm starts" counter equal to its attempts; mesh_from_depth_maps reports
-the five mesh spans.
+the five mesh spans. The CLI's ORB branch reports "orb detect" and "orb
+describe" inside "features" and the counters "orb keypoints" and "orb
+slots" (SIFT none of them), and the scene checkpoint is written under
+"scene write".
 """
 
 import os
@@ -264,3 +267,61 @@ def test_mesh_from_depth_maps_reports_the_mesh_spans(recorder):
     assert MESH_SPANS <= set(report), sorted(report)
     assert all(report[k][1] == 1 for k in MESH_SPANS)
     assert sum(report[k][0] for k in MESH_SPANS) <= report["mesh"][0]
+
+
+def _inside(spans, name, outer):
+    """Every span `name` lies inside a span `outer` on the same clock."""
+    outs = [(a, b) for n, a, b, _ in spans if n == outer]
+    return all(any(a <= s and e <= b for a, b in outs) for n, s, e, _ in spans if n == name)
+
+
+def test_orb_features_report_their_spans_and_counters(insel_orb, recorder):
+    """The CLI's ORB branch (cli/photogrammetrie.py::_extract_features) at
+    capacity 1,024 on the three insel views: "orb detect" (one a pyramid
+    level, and the final selection) and "orb describe" (one a level, the
+    packing and the +-1 expansion) inside "features"; counters "orb
+    keypoints", the valid keypoints of all views, and "orb slots",
+    capacity times views; the outputs those of a run with the recorder
+    off."""
+    from sfm_mvs_pipeline_tpu_torch.cli.photogrammetrie import _extract_features
+    from sfm_mvs_pipeline_tpu_torch.utils.images import load_gray_batch
+
+    paths, kps, descs, valid = insel_orb
+    imgs, _ = load_gray_batch(paths)
+    with recorder.stage("features"):
+        got = _extract_features("orb", torch.from_numpy(imgs), 1024)
+    report, spans = recorder.report(), recorder.spans()
+    levels = report["orb detect"][1] - 1
+    assert 3 <= levels <= 8 and report["orb describe"][1] == levels + 2, report
+    assert report["orb detect"][0] + report["orb describe"][0] <= report["features"][0]
+    assert _inside(spans, "orb detect", "features") and _inside(spans, "orb describe", "features")
+    assert recorder.counters() == {"orb keypoints": int(valid.sum()), "orb slots": 3 * 1024}
+    for a, b in zip(got, (kps, descs, valid)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sift_features_report_no_orb_span_or_counter(insel_orb, recorder):
+    from sfm_mvs_pipeline_tpu_torch.cli.photogrammetrie import _extract_features
+    from sfm_mvs_pipeline_tpu_torch.utils.images import load_gray_batch
+
+    imgs, _ = load_gray_batch(insel_orb[0])
+    _extract_features("sift", torch.from_numpy(imgs), 512)
+    assert not {"orb detect", "orb describe"} & set(recorder.report())
+    assert recorder.counters() == {}
+
+
+def test_the_scene_checkpoint_is_written_under_its_span(recorder, tmp_path):
+    """save_scene (utils/checkpoint.py) under "scene write", inside the
+    CLI's "outputs"; one span a write, none while the recorder is off."""
+    from sfm_mvs_pipeline_tpu_torch.models.scene import Scene
+    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import save_scene
+
+    scene = Scene.create(["a.jpg", "b.jpg"], (64, 48), np.zeros((2, 8, 2)), np.ones((2, 8, 256)),
+                         np.ones((2, 8), bool), np.array([50.0, 32, 24, 0, 0, 0, 0]))
+    with recorder.stage("outputs"):
+        save_scene(scene, str(tmp_path / "scene.npz"))
+    assert recorder.report()["scene write"][1] == 1
+    assert _inside(recorder.spans(), "scene write", "outputs")
+    recorder.enable(False)
+    save_scene(scene, str(tmp_path / "again.npz"))
+    assert recorder.report()["scene write"][1] == 1
