@@ -17,17 +17,22 @@ smoothing, optional RefineMesh / TextureMesh) with an array formulation:
 Vertex colors come from the per-view images (per-vertex coloring; UV-atlas
 texturing is the --refine-mesh/texture long tail, MVS.cpp:175-178).
 
-Port of sfm_mvs_pipeline_tpu/mvs/mesh.py: host numpy, with the
-back-projection of depth_map_to_mesh on the device (mvs/fusion.py).
-cluster_vertices refuses, with a plain error, a grid whose packed key would
-overflow int64 (the JAX package does not check).
+Port of sfm_mvs_pipeline_tpu/mvs/mesh.py. The raw mesh soup (tens of
+millions of vertices and faces at 1080p) lives on the device from the first
+view's faces to the clustered mesh: depth_map_to_mesh builds each view's
+faces there and cluster_vertices merges them there, with sorts in place of
+numpy's np.unique and float64 index_add_ in place of np.bincount. The
+clustered mesh crosses to the host once; the cleanup steps after it (small
+components, holes, smoothing) are host numpy. cluster_vertices refuses,
+with a plain error, a grid whose packed key would overflow int64 (the JAX
+package does not check).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count, stage
 
 
 def depth_map_to_mesh(
@@ -39,112 +44,101 @@ def depth_map_to_mesh(
     max_depth_ratio: float = 0.05,
     stride: int = 1,
     device=None,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
-    """Triangulate one view's depth map, back-projecting on `device`
-    (default: the card; raises without one). Returns (vertices, faces,
-    colors)."""
+):
+    """Triangulate one view's depth map on `device` (default: the card;
+    raises without one): two triangles a quad of valid pixels unless a
+    depth discontinuity splits them. Returns (vertices, faces, colors), the
+    used vertices in pixel order, as tensors on `device`."""
     import torch
 
     from sfm_mvs_pipeline_tpu_torch import resolve_device
     from sfm_mvs_pipeline_tpu_torch.mvs.fusion import unproject_depth
 
-    d = depth[::stride, ::stride]
-    v = valid[::stride, ::stride]
+    dev = resolve_device(device)
+    # the masks in the depth map's own dtype, as numpy computed them
+    d = torch.as_tensor(np.ascontiguousarray(depth[::stride, ::stride]), device=dev)
+    v = torch.as_tensor(np.ascontiguousarray(valid[::stride, ::stride]), device=dev)
     h, w = d.shape
     intr_s = intr.copy()
     intr_s[:3] = intr[:3] / stride
-    dev = resolve_device(device)
     pts, _ = unproject_depth(
-        torch.as_tensor(np.ascontiguousarray(d), dtype=torch.float32, device=dev), None,
+        d.float(), None,
         torch.as_tensor(pose, dtype=torch.float32, device=dev),
         torch.as_tensor(intr_s, dtype=torch.float32, device=dev),
     )
-    pts = pts.cpu().numpy().reshape(h, w, 3)
 
-    idx = np.arange(h * w).reshape(h, w)
-    a = idx[:-1, :-1]
-    b = idx[:-1, 1:]
-    c = idx[1:, :-1]
-    e = idx[1:, 1:]
-    va = v[:-1, :-1]
-    vb = v[:-1, 1:]
-    vc = v[1:, :-1]
-    ve = v[1:, 1:]
-    da = d[:-1, :-1]
-    db = d[:-1, 1:]
-    dc = d[1:, :-1]
-    de = d[1:, 1:]
+    va, vb, vc, ve = v[:-1, :-1], v[:-1, 1:], v[1:, :-1], v[1:, 1:]
+    da, db, dc, de = d[:-1, :-1], d[:-1, 1:], d[1:, :-1], d[1:, 1:]
 
     def smooth(x, y):
-        m = np.minimum(x, y)
-        return np.abs(x - y) <= max_depth_ratio * np.maximum(m, 1e-9)
+        return (x - y).abs() <= max_depth_ratio * torch.minimum(x, y).clamp_min(1e-9)
 
     t1_ok = va & vb & vc & smooth(da, db) & smooth(da, dc) & smooth(db, dc)
     t2_ok = vb & ve & vc & smooth(db, de) & smooth(db, dc) & smooth(de, dc)
-    f1 = np.stack([a[t1_ok], c[t1_ok], b[t1_ok]], axis=1)
-    f2 = np.stack([b[t2_ok], c[t2_ok], e[t2_ok]], axis=1)
-    faces = np.concatenate([f1, f2])
+    # a quad's corners a b / c e; boolean indexing keeps row-major order
+    a = torch.arange(h * w, device=dev).view(h, w)[:-1, :-1]
+    a1, a2 = a[t1_ok], a[t2_ok]
+    faces = torch.cat([torch.stack([a1, a1 + w, a1 + 1], 1),  # (a, c, b)
+                       torch.stack([a2 + 1, a2 + w, a2 + w + 1], 1)])  # (b, c, e)
 
-    verts = pts.reshape(-1, 3)
+    # compact to the used vertices: the mask's exclusive cumsum is the
+    # remap, in the sorted order np.unique(faces) gave, with no sort
+    used = torch.zeros(h * w, dtype=torch.bool, device=dev)
+    used[faces.view(-1)] = True
+    remap = torch.cumsum(used, 0) - 1
+    keep = used.nonzero().squeeze(1)
     cols = None
     if rgb is not None:
-        cols = rgb[::stride, ::stride].reshape(-1, 3)
-    # compact to used vertices
-    used = np.unique(faces)
-    remap = np.full(h * w, -1, np.int64)
-    remap[used] = np.arange(len(used))
-    return verts[used], remap[faces], (cols[used] if cols is not None else None)
+        cols = torch.as_tensor(np.ascontiguousarray(rgb[::stride, ::stride]), device=dev)
+        cols = cols.reshape(-1, 3)[keep]
+    return pts.reshape(-1, 3)[keep], remap[faces], cols
 
 
-def cluster_vertices(
-    vertices: np.ndarray,
-    faces: np.ndarray,
-    colors: np.ndarray | None,
-    cell: float,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
-    """Vertex-clustering merge/decimation on a world grid of size `cell`."""
-    if len(vertices) == 0:
-        return vertices, faces, colors
-    keys = np.floor(vertices / cell).astype(np.int64)
-    # pack the 3 cell coordinates into ONE int64 key: np.unique on a 1D
-    # array sorts 8-byte scalars instead of lexsorting rows (axis=0 cost
-    # 31 s on the 7.8M-vertex big scene; packed ~4 s)
-    keys -= keys.min(axis=0)
-    r = keys.max(axis=0).astype(np.int64) + 1
-    if int(r[0]) * int(r[1]) * int(r[2]) > np.iinfo(np.int64).max:
+def cluster_vertices(vertices, faces, colors, cell: float):
+    """Vertex-clustering merge/decimation on a world grid of size `cell`.
+
+    Takes tensors, and runs on their device, or numpy arrays, and runs on
+    the CPU; returns numpy arrays (the clustered mesh's one host read). The
+    vertices' dtype divides and floors as numpy does; the means accumulate
+    in float64 as np.bincount does; the faces keep numpy's order (first
+    occurrences of each face, in input order). Counts the vertices in
+    "mesh raw vertices", and in "mesh device vertices" on a card."""
+    import torch
+
+    V = torch.as_tensor(vertices)
+    dev = V.device
+    F = torch.as_tensor(faces, device=dev).long()
+    C = None if colors is None else torch.as_tensor(colors, device=dev)
+    count("mesh raw vertices", len(V))
+    if V.is_cuda:
+        count("mesh device vertices", len(V))
+    if len(V) == 0:
+        return V.cpu().numpy(), F.cpu().numpy(), None if C is None else C.cpu().numpy()
+    # a 0-dim tensor, not a Python scalar: on a card torch divides by a
+    # scalar as a product with its reciprocal, which rounds differently
+    keys = torch.floor(V / torch.tensor(cell, dtype=V.dtype, device=dev)).long()
+    # pack the 3 cell coordinates into ONE int64 key: a 1-D unique sorts
+    # 8-byte scalars instead of rows
+    keys -= keys.amin(0)
+    r = (keys.amax(0) + 1).tolist()
+    if r[0] * r[1] * r[2] > np.iinfo(np.int64).max:
         raise ValueError(
-            f"vertex grid of {int(r[0])} x {int(r[1])} x {int(r[2])} cells (cell {cell}) "
+            f"vertex grid of {r[0]} x {r[1]} x {r[2]} cells (cell {cell}) "
             "does not fit a packed int64 key; use a larger cell"
         )
     packed = (keys[:, 0] * r[1] + keys[:, 1]) * r[2] + keys[:, 2]
-    _, inv, counts = np.unique(
-        packed, return_inverse=True, return_counts=True
-    )
-    n_clusters = counts.shape[0]
-    # bincount per column: np.add.at's buffered scatter cost ~20 s on the
-    # 7.8M-vertex big scene; bincount is a tight counting loop
-    new_verts = np.stack(
-        [
-            np.bincount(inv, weights=vertices[:, c], minlength=n_clusters)
-            for c in range(3)
-        ],
-        axis=1,
-    ) / counts[:, None]
-    new_cols = None
-    if colors is not None:
-        cacc = np.stack(
-            [
-                np.bincount(
-                    inv,
-                    weights=colors[:, c].astype(np.float64),
-                    minlength=n_clusters,
-                )
-                for c in range(3)
-            ],
-            axis=1,
-        )
-        new_cols = np.clip(cacc / counts[:, None], 0, 255).astype(np.uint8)
-    new_faces = inv[faces]
+    del keys
+    _, inv, counts = torch.unique(packed, sorted=True, return_inverse=True,
+                                  return_counts=True)
+    n_clusters = len(counts)
+
+    def mean(x):
+        acc = torch.zeros((n_clusters, 3), dtype=torch.float64, device=dev)
+        return acc.index_add_(0, inv, x.double()) / counts[:, None]
+
+    new_verts = mean(V)
+    new_cols = None if C is None else mean(C).clamp(0, 255).to(torch.uint8)
+    new_faces = inv[F]
     # drop degenerate + duplicate faces (the Clean pass)
     ok = (
         (new_faces[:, 0] != new_faces[:, 1])
@@ -152,14 +146,20 @@ def cluster_vertices(
         & (new_faces[:, 0] != new_faces[:, 2])
     )
     new_faces = new_faces[ok]
-    key = np.sort(new_faces, axis=1).astype(np.int64)
+    key = torch.sort(new_faces, dim=1).values
     if n_clusters <= 2_000_000:  # n^3 must stay inside int64
-        n = np.int64(n_clusters)
-        packed_f = (key[:, 0] * n + key[:, 1]) * n + key[:, 2]
-        _, uniq = np.unique(packed_f, return_index=True)
+        n = n_clusters
+        uniq, inv_f = torch.unique((key[:, 0] * n + key[:, 1]) * n + key[:, 2],
+                                   return_inverse=True)
     else:
-        _, uniq = np.unique(key, axis=0, return_index=True)
-    return new_verts, new_faces[np.sort(uniq)], new_cols
+        uniq, inv_f = torch.unique(key, dim=0, return_inverse=True)
+    # each face's first occurrence (np.unique's return_index), in face order
+    order = torch.arange(len(new_faces), device=dev)
+    first = torch.zeros(len(uniq), dtype=torch.int64, device=dev).scatter_reduce_(
+        0, inv_f, order, "amin", include_self=False)
+    new_faces = new_faces[torch.sort(first).values]
+    return (new_verts.cpu().numpy(), new_faces.cpu().numpy(),
+            None if new_cols is None else new_cols.cpu().numpy())
 
 
 def laplacian_smooth(
@@ -314,10 +314,14 @@ def mesh_from_depth_maps(
     log=lambda *a: None,
     device=None,
 ) -> dict:
-    """Full meshing pass over all views; the back-projection runs on
-    `device` (default: the card), the rest is host numpy. Each step is a
-    span of its own ("mesh backproject", "mesh cluster", "mesh
-    components", "mesh holes", "mesh smooth"; utils/stage_timer.py)."""
+    """Full meshing pass over all views on `device` (default: the card):
+    the raw mesh soup is built and clustered there and read to the host
+    once, clustered; components, holes and smoothing are host numpy. Each
+    step is a span of its own ("mesh backproject", "mesh cluster", "mesh
+    components", "mesh holes", "mesh smooth"; utils/stage_timer.py).
+    Returns numpy arrays."""
+    import torch
+
     all_v, all_f, all_c = [], [], []
     off = 0
     with stage("mesh backproject"):
@@ -335,14 +339,15 @@ def mesh_from_depth_maps(
             off += len(v)
         if not all_v:
             return {"vertices": np.zeros((0, 3)), "faces": np.zeros((0, 3), int)}
-        V = np.concatenate(all_v)
-        F = np.concatenate(all_f)
-        C = np.concatenate(all_c) if all_c else None
+        V = torch.cat(all_v)
+        F = torch.cat(all_f)
+        C = torch.cat(all_c) if all_c else None
+        del all_v, all_f, all_c
     log(f"raw mesh: {len(V)} verts, {len(F)} faces")
 
     with stage("mesh cluster"):
         # merge/decimate cell: median NN scale of the vertex soup
-        bbox = V.max(0) - V.min(0)
+        bbox = (V.amax(0) - V.amin(0)).cpu().numpy()
         target = 1.5e-3 if decimate else 5e-4
         cell = float(np.linalg.norm(bbox)) * target * (4 if decimate else 1)
         V, F, C = cluster_vertices(V, F, C, max(cell, 1e-9))

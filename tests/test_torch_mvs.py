@@ -236,7 +236,7 @@ def test_plain_k2b_matches_staged_pallas(rng):
 
 
 def test_mesh_texture_refine(scene):
-    """Meshing (host numpy around the device back-projection), texturing
+    """Meshing (torch on the given device, here the CPU), texturing
     (host numpy) and the photometric refinement (torch ZNCC scorer) against
     the JAX package on the scene's exact depth maps. Mesh vertices atol
     1e-4 (f32 back-projection, then cluster means), faces and atlas exact;
@@ -297,3 +297,49 @@ def test_mesh_steps_match_jax(scene, noise):
                 for k in steps}
 
     assert faces(logs["port"]) == faces(logs["jax"])
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_depth_map_to_mesh_matches_jax(scene, stride):
+    """One view's triangulation, built in torch (here on the CPU), against
+    the JAX package's numpy one on noisy depth with invalid pixels: faces
+    and colours equal, the used vertices within the back-projection's f32
+    atol (1e-5 on depths of ~8-12)."""
+    from sfm_mvs_pipeline_tpu.mvs import mesh as JM
+    from sfm_mvs_pipeline_tpu_torch.mvs import mesh as TM
+
+    grays, gt, poses, intr = scene
+    rng = np.random.default_rng(3)
+    depth = (gt[1] * (1 + 0.02 * rng.standard_normal(gt[1].shape))).astype(np.float32)
+    valid = rng.random(depth.shape) > 0.1
+    rgb = rng.integers(0, 256, depth.shape + (3,)).astype(np.uint8)
+    vt, ft, ct = TM.depth_map_to_mesh(depth, valid, poses[1], intr, rgb, stride=stride,
+                                      device="cpu")
+    vj, fj, cj = JM.depth_map_to_mesh(depth, valid, poses[1], intr, rgb, stride=stride)
+    assert len(fj) > 1000
+    np.testing.assert_array_equal(ft.numpy(), fj)
+    np.testing.assert_array_equal(ct.numpy(), cj)
+    np.testing.assert_allclose(vt.numpy(), vj, atol=1e-5)
+
+
+@pytest.mark.parametrize("cell", [0.02, 0.005])
+def test_cluster_vertices_matches_jax(cell):
+    """cluster_vertices in torch on the CPU against the JAX package's numpy
+    one on float32 vertices with repeated and degenerate faces: every
+    output equal, the float64 means too (both sum in input order here)."""
+    from sfm_mvs_pipeline_tpu.mvs.mesh import cluster_vertices as j_cluster
+    from sfm_mvs_pipeline_tpu_torch.mvs.mesh import cluster_vertices as t_cluster
+
+    rng = np.random.default_rng(9)
+    n = 60_000
+    verts = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    faces = rng.integers(0, n, (120_000, 3))
+    faces[::4] = faces[1::4][: len(faces[::4])]
+    faces[::9, 2] = faces[::9, 0]
+    cols = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    got = t_cluster(torch.from_numpy(verts), torch.from_numpy(faces), torch.from_numpy(cols), cell)
+    want = j_cluster(verts, faces, cols, cell)
+    assert len(want[1]) > 1000
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

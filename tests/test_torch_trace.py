@@ -9,7 +9,8 @@ events with. A small reconstruct (insel at 240x135, ORB, seed 0: its first
 start is abandoned, tests/test_torch_sfm_restart.py) reports the six sparse
 spans, an "lm iterations" counter equal to its logged BA iterations and an
 "sfm starts" counter equal to its attempts; mesh_from_depth_maps reports
-the five mesh spans. The CLI's ORB branch reports "orb detect" and "orb
+the five mesh spans and counts its raw vertices in "mesh raw vertices"
+("mesh device vertices" stays 0 on the CPU). The CLI's ORB branch reports "orb detect" and "orb
 describe" inside "features" and the counters "orb keypoints" and "orb
 slots" (SIFT none of them), and the scene checkpoint is written under
 "scene write".
@@ -260,13 +261,17 @@ def test_mesh_from_depth_maps_reports_the_mesh_spans(recorder):
     poses = np.zeros((2, 6))
     poses[1, 3] = 0.2
     intr = make_intrinsics(w, h).numpy().astype(np.float32)
+    logs = []
     with recorder.stage("mesh"):
-        mesh = mesh_from_depth_maps(depths, valids, poses, intr, device="cpu")
+        mesh = mesh_from_depth_maps(depths, valids, poses, intr, device="cpu", log=logs.append)
     assert len(mesh["faces"]) > 0
     report = recorder.report()
     assert MESH_SPANS <= set(report), sorted(report)
     assert all(report[k][1] == 1 for k in MESH_SPANS)
     assert sum(report[k][0] for k in MESH_SPANS) <= report["mesh"][0]
+    raw, = [int(m.group(1)) for ln in logs if (m := re.match(r"raw mesh: (\d+) verts", ln))]
+    assert raw > 0 and recorder.counters().get("mesh raw vertices") == raw
+    assert not recorder.counters().get("mesh device vertices")  # clustered on the CPU
 
 
 def _inside(spans, name, outer):
