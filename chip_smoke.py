@@ -101,7 +101,7 @@ the CPU. Phases, each timed and each fatal on failure:
      run resumed from the run's scene.npz; (c) the same scene at world 2
      with -Pdense-method=patchmatch: K3 on each rank, phase 10's limit,
      depth maps bit-equal to world 1; (a) in a one-rank nccl group
-     (SHARDED_FUNCS, as phase 18's functions), match_pairs_sharded (fast and exact), run_bundle_adjustment_sharded
+     (SHARDED_FUNCS), match_pairs_sharded (fast and exact), run_bundle_adjustment_sharded
      and compute_depth_maps_sharded (rect --sgm and PatchMatch) on that
      scene, each bit-equal to the one-rank function on the same inputs.
      Each rank's walls, stage split and time in collectives are printed
@@ -155,41 +155,14 @@ the CPU. Phases, each timed and each fatal on failure:
      shard thread (utils/stage_timer.py). Every count is zeroed just before a run and read
      just after; each card's launches of each kernel are printed, and each
      kernel of a run must have launched on every card with work.
- 18. ranks by cards: torchrun ranks that each hold several devices, 4
-     shards in rank-major order (global shard rank x 2 + device), the
-     counterpart of the JAX package's process x local-device mesh. 18a
-     (fewer than four cards, so in the default run on one card): 2 gloo
-     ranks, each -Pdevice=cuda:0,cuda:0 (the subprocesses see card 0
-     only): parallel/dryrun.py from an emptied kernel build dir (both
-     ranks build every kernel at once; K1, K1x, K2a, K3 on each rank's
-     card), insel with phase 6's flags (3 views for 4 shards, 3 pairs:
-     matching unsharded; K2a; rank 0 alone writing) held to a world-1 run
-     resumed from its scene.npz (depth maps bit-equal, dense files
-     identical), then on phase 7's scene.npz (or, run alone, a sparse
-     world-1 run of the render) the sharded matcher (fast and exact) and
-     depth maps (rect --sgm, PatchMatch) bit-equal to one device (K1, K1x,
-     K2b, K3). 18b (four cards; `--phases 18` on a four-card machine): 2
-     nccl ranks, each its block of two cards (-Pdevice=cuda: cards 0-1 and
-     2-3, four distinct UUIDs checked): the dryrun from an emptied build
-     dir; the render with phase 7's flags; on its scene sharded BA
-     (float64, within phase 16's world-4 tolerance of one card), the
-     matcher and the depth maps; PatchMatch resumed under -Pprofile= (each
-     card's kernels on one time axis, from both ranks' traces); exact; ORB
-     at -Pfeature-limit=8192; insel --sgm (card 3 computes none). The
-     limits of phases 4, 7, 10, 13 and 14; depth maps bit-equal and dense
-     files identical to world 1 on card 0; every kernel of a run launched
-     on every card with work (each rank logs its launches by card). Each
-     rank's wall and stage split are printed, and at the end of the call
-     each wall beside phase 16's (4 ranks x 1 card) and 17b's (1 process x
-     4 cards) where they ran. Phase 18 runs before phases 16 and 17.
-Phases 7, 10, 13, 14, 15, 16, 17 and 18 share one render in a temporary work
+Phases 7, 10, 13, 14, 15, 16 and 17 share one render in a temporary work
 dir. Every in-process run that names no devices takes card 0 alone
 (-Pdevice=cuda:0): the CLI's default, every visible card, would shard.
 Prints the card's name and power limit, one JSON line with the kernel
 table, and as its last line {"ok": true, "device": {...}}. A run of some
 phases only prints no result line; it exits 0 when they pass.
 
-Usage: python3 chip_smoke.py [--phases 1,2,...,18]
+Usage: python3 chip_smoke.py [--phases 1,2,...,17]
        python3 chip_smoke.py --k1x-timing ROOT [--k1x-inputs NPZ]
 The second form only times K1x of the checkout at ROOT (k1x_timing), so two
 checkouts compare in one call: parent, change, change, parent.
@@ -224,10 +197,9 @@ K3_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/pm_kernel.cu"
 K3_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/pm_kernel.py:46"
 K1X_SOURCE = "sfm_mvs_pipeline_tpu_torch/csrc/match_exact_kernel.cu"
 K1X_REPLACES = "sfm_mvs_pipeline_tpu/ops/pallas/match_kernel.py:88"
-ALL_PHASES = set(range(1, 16)) | {17, 18}  # a full run holds them all
+ALL_PHASES = set(range(1, 16)) | {17}  # a full run holds them all
 FOUR_CARD_PHASE = 16  # in the default run only on a machine with four cards
 MESH_PHASE = 17  # 17a on a machine with fewer than four cards, else 17b
-RBC_PHASE = 18  # 18a on a machine with fewer than four cards, else 18b
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"fp32": 67e12, "bf16": 989e12}
@@ -1558,7 +1530,7 @@ def k1x_timing(root: str, inputs: str | None) -> int:
 # the world-1 walls phase 15 prints its runs beside (phases 4, 7, 10)
 WORLD1_WALLS: dict[str, float] = {}
 
-# 15a and 18: the sharded functions under torchrun on a run's scene
+# 15a: the sharded functions under torchrun on a run's scene
 # (argv[1]) over the ranks' devices (argv[2]): the matcher (fast and exact),
 # the depth maps (rect --sgm and PatchMatch on the scene's views) and, by
 # argv[3], point-sharded BA ("bit": the default dtype, held bit for bit;
@@ -1974,6 +1946,20 @@ def by_card_counts(text: str) -> dict:
     "two_nn_batch_fused 0:1/1:1, sgm_hpair 0:15/1:15"."""
     return {name: {int(c): int(n) for c, n in re.findall(r"(\d+):(\d+)", counts)}
             for name, counts in re.findall(r"(\w+) ([\d:/]*)", text)}
+
+
+def check_card_launches(label: str, by_rank: list[dict], cards: list[list[int]],
+                        kernels: list[str], idle: tuple = ()) -> None:
+    """Each kernel in `kernels` launched on every card of every rank
+    (cards[r]) but the (rank, card) pairs in `idle`, which have no work,
+    and on none of those."""
+    for r, own in enumerate(cards):
+        for c in own:
+            for name in kernels:
+                n = by_rank[r].get(name, {}).get(c, 0)
+                if (n > 0) == ((r, c) in idle):
+                    raise AssertionError(f"{label}: rank {r} launched {name} {n} times on card "
+                                         f"{c} (without work: {idle})")
 
 
 def sharded_functions(card: str, label: str, scene_npz: str, devices: str, world: int,
@@ -2412,11 +2398,6 @@ def world4_ba(card: str, scene_npz: str) -> dict:
 # the mesh of one process: 17a two shards on card 0, 17b the four cards
 
 
-# phase 17's one-process walls by run label ("17b --sgm", ...), which phase
-# 18b prints its walls beside
-MESH_WALLS: dict[str, float] = {}
-
-
 def kernel_wrappers() -> tuple:
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel as K
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import pm_kernel as K3
@@ -2459,7 +2440,6 @@ def mesh_run(card: str, label: str, argv: list[str], log_name: str, devices: str
         stage_timer.enable(False)
     if rc != 0:
         raise AssertionError(f"{label}: the CLI exited {rc}")
-    MESH_WALLS[label] = wall
     by_card = {k.__name__: dict(sorted(k.by_card.items())) for k in wrappers}
     say(card, f"{label}: stages " + "; ".join(f"{k} {t:.3f} s x{n}" for k, (t, n) in split.items()))
     say(card, f"{label}: kernel launches per card " + per_card(by_card))
@@ -2785,322 +2765,9 @@ def phase_mesh_four_cards(card: str, work: str, n_views=12, h=1080, w=1920, f=16
     return launches
 
 
-
-# ------------------------------------------------------------- phase 18
-# ranks by cards: torchrun ranks that each hold several devices, world x L
-# shards in rank-major order (18a: 2 gloo ranks, each cuda:0,cuda:0 on one
-# card; 18b: 2 nccl ranks, each its block of two of four cards)
-RBC_WORLD = 2
-
-# phase 18's torchrun walls and each rank's report (rank_report) by run
-# label ("18b --sgm", ...); 18b's are printed at the end of a call beside
-# phase 16's (TORCHRUN_WALLS) and 17b's (MESH_WALLS)
-RBC_WALLS: dict[str, tuple] = {}
-# 18b's runs and their counterparts: phase 16's run and phase 17b's label
-RBC_BESIDE = {"--sgm": ("I-2", "17b --sgm"), "PatchMatch": ("I-3", "17b PatchMatch"),
-              "exact": ("I-4", "17b exact"), "ORB": ("I-5", "17b ORB"),
-              "insel --sgm": ("I-6", "17b insel --sgm")}
-
-
-def rank_cards_of(log: str, world: int, label: str, backend: str) -> list[list[tuple]]:
-    """Each rank's cards [(index, "GPU-<uuid>, PCI bus <bus>"), ...], its
-    bound card first, from its process-group line; raises unless every
-    rank took `backend` by the port's rule."""
-    out = []
-    for r in range(world):
-        m = re.search(rf"r{r}/{world}\] process group: rank {r} of {world}, backend (\w+) "
-                      rf"\(\d+ local rank\(s\) on \d+ card\(s\); this rank's card: (\d+) "
-                      rf"([^;)]*)((?:; its card \d+: [^;)]*)*)\)", log)
-        if not m:
-            raise AssertionError(f"{label}: rank {r} logged no process-group line with its cards")
-        if m.group(1) != backend:
-            raise AssertionError(f"{label}: rank {r} took backend {m.group(1)}, not {backend}")
-        out.append([(int(m.group(2)), m.group(3))] + [
-            (int(c), u) for c, u in re.findall(r"; its card (\d+): ([^;)]*)", m.group(4))])
-    return out
-
-
-def launches_by_card(log: str, world: int) -> list[dict]:
-    """Each rank's "kernel launches by card" line: {kernel: {card: n}}
-    ({} where the rank launched no kernel)."""
-    out = []
-    for r in range(world):
-        m = re.search(rf"r{r}/{world}\] kernel launches by card: (.*)", log)
-        out.append(by_card_counts(m.group(1)) if m else {})
-    return out
-
-
-def check_card_launches(label: str, by_rank: list[dict], cards: list[list[int]],
-                        kernels: list[str], idle: tuple = ()) -> None:
-    """Each kernel in `kernels` launched on every card of every rank
-    (cards[r]) but the (rank, card) pairs in `idle`, which have no work,
-    and on none of those."""
-    for r, rank_cards in enumerate(cards):
-        for c in rank_cards:
-            for name in kernels:
-                n = by_rank[r].get(name, {}).get(c, 0)
-                if (n > 0) == ((r, c) in idle):
-                    raise AssertionError(f"{label}: rank {r} launched {name} {n} times on card "
-                                         f"{c} (without work: {idle})")
-
-
-def rbc_cli(card: str, label: str, argv: list[str], log_name: str, timeout: float, env: dict,
-            backend: str, kernels: list[str], idle: tuple = ()) -> tuple[str, list, list]:
-    """One CLI run at RBC_WORLD ranks under torchrun (each rank's devices
-    by -Pdevice= in argv, or its block of cards), checked: `backend` by
-    the port's rule, each kernel in `kernels` launched on every card with
-    work (check_card_launches). Prints each rank's cards, wall, stage split
-    and launches by card. Returns (log, each rank's report (rank_report),
-    each rank's cards)."""
-    log, wall = torchrun_cli(argv, RBC_WORLD, log_name, timeout, env)
-    held = rank_cards_of(log, RBC_WORLD, label, backend)
-    reports = rank_report(log, RBC_WORLD)
-    RBC_WALLS[label] = (wall, reports)
-    by_rank = launches_by_card(log, RBC_WORLD)
-    cards = [sorted({c for c, _ in h}) for h in held]
-    say(card, f"{label}: torchrun wall {wall:.2f} s, {RBC_WORLD} {backend} ranks; " + "; ".join(
-        f"rank {r} cards " + ", ".join(f"{c} {u}" for c, u in h) for r, h in enumerate(held)))
-    say_ranks(card, label, reports, wall, f"{RBC_WORLD} ranks x {len(cards[0])} card(s) each")
-    for r, n in enumerate(by_rank):
-        say(card, f"{label} rank {r}: kernel launches by card " + per_card(n))
-    check_card_launches(label, by_rank, cards, kernels, idle)
-    return log, reports, cards
-
-
-def rbc_dryrun(card: str, label: str, env: dict, backend: str, args: tuple = ()) -> list[list]:
-    """parallel/dryrun.py at RBC_WORLD ranks from an emptied build dir
-    (dryrun_at): every rank OK, `backend` by the rule, K1, K1x, K2a and K3
-    launched on every card of every rank. Returns each rank's cards."""
-    log, _ = dryrun_at(card, RBC_WORLD, args, env, tag="_rbc")
-    held = rank_cards_of(log, RBC_WORLD, f"{label} dryrun", backend)
-    by_rank = []
-    for r in range(RBC_WORLD):
-        m = re.search(rf"dryrun rank {r} of {RBC_WORLD}: OK; kernel launches by card (.*)", log)
-        if not m:
-            raise AssertionError(f"{label} dryrun: rank {r} did not report launches by card")
-        by_rank.append(by_card_counts(m.group(1)))
-    cards = [sorted({c for c, _ in h}) for h in held]
-    say(card, f"{label} dryrun launches by card: "
-              + " | ".join(f"rank {r} " + per_card(n) for r, n in enumerate(by_rank)))
-    check_card_launches(f"{label} dryrun", by_rank, cards, ["two_nn_batch_fused",
-                        "two_nn_exact_batch", "sgm_bidir", "pm_score_rect"])
-    return held
-
-
-def rbc_dense_reference(card: str, label: str, out: str, flags: list[str], n_views: int) -> None:
-    """A world-1 run on ONE_CARD resumed from the run's scene.npz with
-    `flags`: the depth maps bit-equal and the dense files identical."""
-    ref = out + "-w1"
-    rc, _, wall = run_cli(["-Prun=photogrammetrie", f"-Presume={out}/scene.npz", f"-Pout={ref}",
-                           *flags, "--artifacts"], f"chip_smoke_{os.path.basename(ref)}.log")
-    if rc != 0:
-        raise AssertionError(f"{label} world-1 reference exited {rc}")
-    depth_maps_equal(out, ref, n_views, label)
-    files_equal(out, ref, ["pointcloud_dense.ply", "mesh_dense.ply"], label)
-    say(card, f"{label}: {n_views} depth maps bit-equal, pointcloud_dense.ply and mesh_dense.ply "
-              f"identical to a world-1 run on {ONE_CARD} resumed from its scene.npz (wall "
-              f"{wall:.2f} s)")
-
-
-def rbc_insel(card: str, work: str, label: str, env: dict, backend: str, devices: list[str],
-              idle: tuple) -> list[dict]:
-    """insel with phase 6's flags at RBC_WORLD ranks: 3 views for 4
-    shards (the last computes none) and 3 pairs (matching unsharded), K2a
-    on every card with work, rank 0 alone writing, the depth maps and
-    dense files held to world 1. Returns each rank's launches by card."""
-    insel = os.path.join(ROOT, "sample_data", "insel")
-    out = os.path.join(work, f"out-{label.split()[0]}-insel")
-    dense = ["--dense", "--sgm", "--mesh", "--colored"]
-    log, reports, _ = rbc_cli(card, label, ["-Prun=photogrammetrie", f"-Pimage={insel}",
-                                            f"-Pout={out}", *dense, "--stats", "--artifacts",
-                                            *devices], f"chip_smoke_{label.split()[0]}_insel.log",
-                              300, env, backend, ["sgm_bidir"], idle)
-    scene, med = check_outputs(out)
-    n_pts, _ = ply_counts(os.path.join(out, "pointcloud_dense.ply"))
-    _, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
-    say(card, f"{label}: {int(scene.recovered.sum())}/3 views, median reprojection {med:.4f} px, "
-              f"{n_pts} dense points, {n_faces} faces")
-    if int(scene.recovered.sum()) != 3 or not med < 1.0 or n_pts <= 0 or n_faces <= 0:
-        raise AssertionError(f"{label}: {int(scene.recovered.sum())}/3 views, {med} px, "
-                             f"{n_pts} points, {n_faces} faces")
-    if "pair-sharded matching" in log:
-        raise AssertionError(f"{label}: 3 pairs for 4 shards were matched sharded")
-    for r in range(RBC_WORLD):
-        what = f"MVS r{r}/{RBC_WORLD}] view-sharded depth maps over 4 shards (2 ranks x 2 devices)"
-        if what not in log:
-            raise AssertionError(f"{label}: rank {r} did not log {what!r}")
-    rank0_alone_finished(label, log, reports, dense=True, world=RBC_WORLD)
-    rbc_dense_reference(card, label, out, dense, 3)
-    return launches_by_card(log, RBC_WORLD)
-
-
-def rbc_scene(card: str, work: str, n_views: int, h: int, w: int, f: float) -> str:
-    """Phase 7's scene.npz where phase 7 ran in this call, else a sparse
-    world-1 run of the render on ONE_CARD."""
-    scene_npz = os.path.join(work, "out-dense", "scene.npz")
-    if os.path.exists(scene_npz):
-        return scene_npz
-    data, _, _ = render_once(card, work, n_views, h, w, f)
-    out = os.path.join(work, "out-rbc-scene")
-    rc, _, wall = run_cli(["-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}",
-                           "-Pfeature-limit=0"], "chip_smoke_18_scene.log")
-    if rc != 0:
-        raise AssertionError(f"the render's sparse run for phase 18 exited {rc}")
-    say(card, f"18: phase 7 did not run in this call; the render's sparse SfM on {ONE_CARD} "
-              f"in {wall:.2f} s")
-    return os.path.join(out, "scene.npz")
-
-
-def phase_rbc_one_card(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0) -> dict:
-    """18a: 2 gloo ranks, each -Pdevice=cuda:0,cuda:0 (4 shards on one
-    card): the dryrun from an emptied build dir, insel with phase 6's
-    flags, then the sharded matcher (fast and exact) and depth maps (rect
-    --sgm, PatchMatch) on phase 7's scene.npz, each held bit for bit to
-    world 1 on the card. Returns each kernel's launches by rank."""
-    env = visible_cards(1)
-    devices = f"{ONE_CARD},{ONE_CARD}"
-    rbc_dryrun(card, "18a", env, "gloo", ("--device", devices))
-    insel = rbc_insel(card, work, "18a insel --sgm", env, "gloo", [f"-Pdevice={devices}"], ())
-    fn = sharded_functions(card, "18a functions", rbc_scene(card, work, n_views, h, w, f),
-                           devices, RBC_WORLD, env, "gloo", "-")
-    return {"k2a": [n.get("sgm_bidir", {}) for n in insel],
-            **{k: [r["by_card"][name] for r in fn] for k, name in (
-                ("k1", "two_nn_batch_fused"), ("k1x", "two_nn_exact_batch"),
-                ("k2b_hpair", "sgm_hpair"), ("k2b_dir_acc", "sgm_dir_acc"),
-                ("k3", "pm_score_rect"))}}
-
-
-def phase_rbc_four_cards(card: str, work: str, n_views=12, h=1080, w=1920, f=1680.0,
-                         devices: str = "cuda", backend: str = "nccl") -> dict:
-    """18b: 2 nccl ranks, each its block of two of four cards
-    (-Pdevice=cuda: cards 0-1 and 2-3; four distinct UUIDs): the dryrun
-    from an emptied build dir; the render with phase 7's flags; sharded BA
-    (float64), the matcher and depth maps on its scene against one card;
-    PatchMatch resumed under -Pprofile= (each card's kernels on one time
-    axis); exact; ORB at -Pfeature-limit=8192; insel --sgm (card 3
-    computes none). The limits of phases 4, 7, 10, 13 and 14; depth maps
-    and dense files held to world 1 on card 0. Returns each kernel's
-    launches by rank and card. `devices` other than "cuda" (each rank's
-    -Pdevice=, e.g. cpu,cpu under gloo) rehearses the phase elsewhere."""
-    import torch
-
-    if devices == "cuda" and torch.cuda.device_count() < WORLD4:
-        raise AssertionError(f"18b needs four cards; this machine has "
-                             f"{torch.cuda.device_count()}")
-    env = visible_cards(WORLD4)
-    named = [] if devices == "cuda" else [f"-Pdevice={devices}"]
-    data, gt_R, gt_C = render_once(card, work, n_views, h, w, f)
-    held = rbc_dryrun(card, "18b", env, backend, ("--device", devices))
-    ids = [u for h_ in held for _, u in h_]
-    if devices == "cuda" and ([[c for c, _ in h_] for h_ in held] != [[0, 1], [2, 3]]
-                              or len(set(ids)) != WORLD4):
-        raise AssertionError(f"18b: the ranks' cards are not 0-1 and 2-3 of four distinct "
-                             f"cards: {held}")
-    launches = {}
-
-    # the render with phase 7's flags from the images
-    out = os.path.join(work, "out-18b-sgm")
-    dense = ["--dense", "--sgm", "--mesh", "--colored"]
-    log, reports, _ = rbc_cli(card, "18b --sgm", [
-        "-Prun=photogrammetrie", f"-Pimage={data}", f"-Pout={out}", "-Pfeature-limit=0", *dense,
-        "--stats", "--artifacts", *named], "chip_smoke_18b_sgm.log", 600, env, backend,
-        ["two_nn_batch_fused", "sgm_hpair", "sgm_dir_acc"])
-    scene, med = check_outputs(out)
-    rec, rel_ate, rot = trajectory_error(scene, gt_R, gt_C)
-    share, n_pts = dense_accuracy(out, gt_R, gt_C)
-    _, n_faces = ply_counts(os.path.join(out, "mesh_dense.ply"))
-    ba = re.findall(rf"r0/{RBC_WORLD}\] BA #\d+: cost \S+ \((\d+) iters.*?"
-                    rf"(, point-sharded over {RBC_WORLD} ranks)?$", log, re.M)
-    say(card, f"18b --sgm: {len(rec)}/{n_views} views, ATE {rel_ate:.5%} of extent, max rel rot "
-              f"{rot:.4f} deg, median reprojection {med:.4f} px, {n_pts} dense points, "
-              f"{share:.4%} within 1% of depth (limit {DENSE_SHARE_LIMIT:.0%}), {n_faces} faces; "
-              f"{sum(1 for _, s in ba if s)} of {len(ba)} BA runs over the gate of "
-              f"{2048 * RBC_WORLD} live observations ({int((scene.obs_w > 0).sum())} at the end) "
-              f"point-sharded over the ranks; counts: {dense_counts(log)}")
-    if len(rec) != n_views or not (rel_ate <= SIFT_ATE_LIMIT and rot <= 0.25 and med < 1.0):
-        raise AssertionError(f"18b --sgm: {len(rec)} views, ATE {rel_ate}, rot {rot}, {med}")
-    if not share >= DENSE_SHARE_LIMIT or n_pts <= 0 or n_faces <= 0:
-        raise AssertionError(f"18b --sgm: {share:.4%} of {n_pts} points, {n_faces} faces")
-    kind = "4 shards (2 ranks x 2 devices)"
-    for r in range(RBC_WORLD):
-        for what in (f"SfM r{r}/{RBC_WORLD}] pair-sharded matching over {kind}",
-                     f"MVS r{r}/{RBC_WORLD}] view-sharded depth maps over {kind}"):
-            if what not in log:
-                raise AssertionError(f"18b --sgm: rank {r} did not log {what!r}")
-    rank0_alone_finished("18b --sgm", log, reports, dense=True, world=RBC_WORLD)
-    by_rank = launches_by_card(log, RBC_WORLD)
-    launches["k1"] = [n.get("two_nn_batch_fused", {}) for n in by_rank]
-    launches["k2b"] = [{c: n["sgm_hpair"].get(c, 0) + n["sgm_dir_acc"].get(c, 0)
-                        for c in n["sgm_hpair"]} if n else {} for n in by_rank]
-    rbc_dense_reference(card, "18b --sgm", out, dense, n_views)
-
-    fn = sharded_functions(card, "18b functions", os.path.join(out, "scene.npz"), devices,
-                           RBC_WORLD, env, backend, "f64")
-    launches["k1x_function"] = [r["by_card"]["two_nn_exact_batch"] for r in fn]
-
-    # PatchMatch resumed, profiled: each card's kernels on one time axis
-    out_pm, prof = os.path.join(work, "out-18b-pm"), os.path.join(work, "prof-18b")
-    pm = ["-Pdense-method=patchmatch", "--dense", "--mesh", "--colored"]
-    log, reports, _ = rbc_cli(card, "18b PatchMatch", [
-        "-Prun=photogrammetrie", f"-Presume={out}/scene.npz", f"-Pout={out_pm}", *pm, "--stats",
-        "--artifacts", f"-Pprofile={prof}", *named], "chip_smoke_18b_pm.log", 600, env, backend,
-        ["pm_score_rect"])
-    share, n_pts = dense_accuracy(out_pm, gt_R, gt_C)
-    say(card, f"18b PatchMatch (under -Pprofile=): {n_pts} dense points, {share:.4%} within 1% of "
-              f"depth (limit {PM_DENSE_SHARE_LIMIT:.0%}); counts: {dense_counts(log)}")
-    if not share >= PM_DENSE_SHARE_LIMIT:
-        raise AssertionError(f"18b PatchMatch: {share:.4%} of {n_pts} points on the surfaces")
-    rank0_alone_finished("18b PatchMatch", log, reports, dense=True, stats=False, world=RBC_WORLD)
-    launches["k3"] = [n.get("pm_score_rect", {}) for n in launches_by_card(log, RBC_WORLD)]
-    busy = card_busy(*(os.path.join(prof, f"trace.rank{r}.json") for r in range(RBC_WORLD)))
-    say(card, "18b PatchMatch profiled: kernels per card on one time axis "
-        + "; ".join(f"card {c} {a:.3f}-{b:.3f} s busy {t:.3f} s"
-                    for c, (a, b, t) in busy["cards"].items())
-        + f"; two or more cards busy at once {busy['overlap_s']:.3f} s")
-    rbc_dense_reference(card, "18b PatchMatch", out_pm, pm, n_views)
-
-    for label, flags, kern, limits in (
-            ("18b exact", ["-Pfeature-limit=0", "-Pmatch-precision=exact"],
-             "two_nn_exact_batch", (SIFT_ATE_LIMIT, 0.25)),
-            ("18b ORB", ["-Pfeature-detector=ORB", "-Pfeature-limit=8192"],
-             "two_nn_batch_fused", (ORB_ATE_LIMIT, ORB_ROT_LIMIT_DEG))):
-        tag = label.split()[1].lower()
-        out_s = os.path.join(work, f"out-18b-{tag}")
-        log, reports, _ = rbc_cli(card, label, ["-Prun=photogrammetrie", f"-Pimage={data}",
-                                                f"-Pout={out_s}", *flags, "--stats", *named],
-                                  f"chip_smoke_18b_{tag}.log", 600, env, backend, [kern])
-        by_rank = launches_by_card(log, RBC_WORLD)
-        if label == "18b exact" and any(n.get("two_nn_batch_fused") for n in by_rank):
-            raise AssertionError("18b exact: K1 launched in exact mode")
-        world4_sparse_limits(card, label, out_s, n_views, gt_R, gt_C, *limits)
-        rank0_alone_finished(label, log, reports, dense=False, world=RBC_WORLD)
-        launches["k1x" if tag == "exact" else "k1_orb"] = [n.get(kern, {}) for n in by_rank]
-
-    insel = rbc_insel(card, work, "18b insel --sgm", env, backend, named, idle=((1, 3),))
-    launches["k2a"] = [n.get("sgm_bidir", {}) for n in insel]
-    return launches
-
-
-def say_rbc_walls(card: str) -> None:
-    """18b's torchrun walls beside phase 16's (world 4 x 1) and 17b's (one
-    process, 1 x 4) from the same call."""
-    for run, (i_run, mesh_label) in RBC_BESIDE.items():
-        if "18b " + run not in RBC_WALLS:
-            continue
-        w4, w1x4 = TORCHRUN_WALLS.get(i_run), MESH_WALLS.get(mesh_label)
-        wall, reports = RBC_WALLS["18b " + run]
-        split = "; ".join(f"rank {r} " + ", ".join(
-            f"{k} {rep['stages'][k][0]:.3f} s" for k in ("features", "sfm", "outputs", "dense")
-            if k in rep["stages"]) for r, rep in enumerate(reports))
-        say(card, f"walls of {run}: 2 ranks x 2 cards (18b) {wall:.2f} s ({split}); 4 ranks x 1 "
-                  f"card (16, {i_run}) " + (f"{w4:.2f} s" if w4 is not None else "not run")
-            + "; 1 process x 4 cards (17b) " + (f"{w1x4:.2f} s" if w1x4 is not None else "not run")
-            + (" (16's ORB at capacity, 18b's and 17b's at 8,192 features)" if run == "ORB" else ""))
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", help="comma-separated phases (default: 1-15, 17 and 18, and 16 "
+    ap.add_argument("--phases", help="comma-separated phases (default: 1-15 and 17, and 16 "
                     "on a machine with four cards)")
     ap.add_argument("--k1x-timing", metavar="ROOT",
                     help="only time K1x of the checkout at ROOT (see k1x_timing)")
@@ -3233,20 +2900,6 @@ def run_phases(card: str, phases: set, work: str) -> int:
         k3["launches_nccl_world1"] = n1["pm_score_rect"]
         say(card, f"phase 15: {time.perf_counter() - t0:.2f} s")
     four = torch.cuda.device_count() >= WORLD4
-    if RBC_PHASE in phases:  # before 16 and 17: their walls are printed beside its at the end
-        t0 = time.perf_counter()
-        rbc = phase_rbc_four_cards(card, work) if four else phase_rbc_one_card(card, work)
-        # each kernel's launches by rank and card at 2 ranks x 2 devices
-        key = "launches_2x2_4cards" if four else "launches_2x2_1card"
-        entry[key] = {"fp32": rbc["k1"], "bf16_orb": rbc.get("k1_orb")}
-        k1x[key] = rbc["k1x"]
-        k2a[key] = rbc["k2a"]
-        k2b[key] = rbc.get("k2b") or [{c: a.get(c, 0) + b.get(c, 0) for c in a}
-                                      for a, b in zip(rbc["k2b_hpair"], rbc["k2b_dir_acc"])]
-        k3[key] = rbc["k3"]
-        print(json.dumps({key: rbc}), flush=True)
-        say(card, f"phase {RBC_PHASE} ({'18b' if four else '18a'}): "
-                  f"{time.perf_counter() - t0:.2f} s")
     if FOUR_CARD_PHASE in phases:
         t0 = time.perf_counter()
         w4 = phase_world4(card, work)
@@ -3273,7 +2926,6 @@ def run_phases(card: str, phases: set, work: str) -> int:
         print(json.dumps({key: mesh}), flush=True)
         say(card, f"phase {MESH_PHASE} ({'17b' if four else '17a'}): "
                   f"{time.perf_counter() - t0:.2f} s")
-    say_rbc_walls(card)
     if not ALL_PHASES <= phases:
         print(f"partial run (phases {sorted(phases)}): every phase passed; no result line",
               flush=True)

@@ -65,34 +65,27 @@ def resolve_devices(spec=None) -> tuple[_torch.device, ...]:
     """The devices of the mesh an entry point shards over, the counterpart
     of the JAX package's jax.devices().
 
-    `spec` is None, "cuda" or torch.device("cuda") (every visible card; in
-    a process group of torchrun's, the rank's block of cards), "cpu", one
-    named device, or several as a comma-separated string or a sequence:
-    "cuda:0,cuda:1,cuda:2,cuda:3", "cuda:0,cuda:0" (two shards on one
-    card), "cpu,cpu,cpu,cpu". Raises without a card where one is asked
-    for, for a card that does not exist and for a mesh that mixes the CPU
-    and cards.
+    `spec` is None, "cuda" or torch.device("cuda") (every visible card),
+    "cpu", one named device, or several as a comma-separated string or a
+    sequence: "cuda:0,cuda:1,cuda:2,cuda:3", "cuda:0,cuda:0" (two shards
+    on one card), "cpu,cpu,cpu,cpu". Raises without a card where one is
+    asked for, for a card that does not exist and for a mesh that mixes
+    the CPU and cards.
 
-    Inside a process group a rank holds one or more devices of its own
-    (parallel/distributed.py::rank_cards): "cuda" is its block of
-    device_count // LOCAL_WORLD_SIZE cards from LOCAL_RANK times that, or,
-    where ranks share a card (gloo), the shared card LOCAL_RANK %
-    device_count, which initialize_distributed bound. A list must start at
-    the rank's bound card and name cards of its block only (a card may
-    repeat: "cuda:0,cuda:0"), or be the CPU under gloo ("cpu,cpu");
-    anything else raises. Nothing falls back to the CPU or to fewer
-    cards."""
-    import torch.distributed as dist
+    Inside a process group of more than one rank (torchrun) a rank holds
+    one device: None, "cuda" and torch.device("cuda") are its card, the
+    one initialize_distributed bound (LOCAL_RANK % device_count); a device
+    named must be that card, or the CPU under gloo; a list of several
+    raises. Nothing falls back to the CPU or to fewer cards."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
 
-    in_group = dist.is_available() and dist.is_initialized()
+    ranks = world()[1] > 1
     if isinstance(spec, _torch.device) and spec.type == "cuda" and spec.index is None:
         spec = "cuda"
     if spec is None or (isinstance(spec, str) and spec.strip().lower() == "cuda"):
         default_device()
-        if in_group:
-            from sfm_mvs_pipeline_tpu_torch.parallel.distributed import rank_cards
-
-            return tuple(_torch.device("cuda", c) for c in rank_cards())
+        if ranks:
+            return (_torch.device("cuda", _torch.cuda.current_device()),)
         return tuple(_torch.device("cuda", i) for i in range(_torch.cuda.device_count()))
     if isinstance(spec, str):
         spec = [p.strip() for p in spec.lower().split(",")]
@@ -106,22 +99,16 @@ def resolve_devices(spec=None) -> tuple[_torch.device, ...]:
                     if d.type == "cuda" and d.index is None else d for d in devices)
     if len({d.type for d in devices}) > 1:
         raise ValueError(f"a mesh mixes the CPU and cards: {','.join(map(str, devices))}")
-    if in_group:
-        if devices[0].type == "cpu":
-            if dist.get_backend() != "gloo":
-                raise RuntimeError(f"a rank runs on the CPU only under gloo, not "
-                                   f"{dist.get_backend()}")
-            return devices
-        from sfm_mvs_pipeline_tpu_torch.parallel.distributed import rank_cards
+    if ranks:
+        import torch.distributed as dist
 
-        cards = rank_cards()
-        block = ",".join(f"cuda:{c}" for c in cards)
-        if devices[0].index != cards[0]:
-            raise RuntimeError(f"this rank's card is cuda:{cards[0]}, not {devices[0]}: under "
-                               f"torchrun a rank's devices start at its card (its block: "
-                               f"{block})")
-        outside = [str(d) for d in devices if d.index not in cards]
-        if outside:
-            raise RuntimeError(f"this rank holds {block}, not {','.join(outside)}: under "
-                               f"torchrun a rank takes cards of its own block only")
+        if len(devices) > 1:
+            raise RuntimeError(f"a rank holds one device, not {','.join(map(str, devices))}: "
+                               f"a mesh of several devices is -Pdevice=<list> without torchrun")
+        if devices[0].type == "cpu" and dist.get_backend() != "gloo":
+            raise RuntimeError(f"a rank runs on the CPU only under gloo, not "
+                               f"{dist.get_backend()}")
+        if devices[0].type == "cuda" and devices[0].index != _torch.cuda.current_device():
+            raise RuntimeError(f"this rank's card is cuda:{_torch.cuda.current_device()}, "
+                               f"not {devices[0]}")
     return devices

@@ -18,17 +18,15 @@ on the first card (sfm/incremental.py::_SHARDED_BA_MIN_OBS says why).
 on one card; cpu,cpu,cpu,cpu).
 
 Launched once per rank by torchrun, the CLI joins the process group first
-(parallel/distributed.py) and each rank takes its block of its host's
-cards: -Pdevice=cuda then means device_count // LOCAL_WORLD_SIZE cards
-from LOCAL_RANK times that (one card a rank when there are as many ranks
-as cards; the shared card when ranks outnumber cards), and a list must
-start at the rank's card ("cuda:0,cuda:0" two shards on it; "cpu,cpu"
-under gloo). Every rank runs the replicated stages (features, RANSAC,
-PnP, triangulation) on its first device; matching and the depth maps run
-sharded over world x devices shards, in rank-major order as the JAX
-package's process x local-device mesh; bundle adjustment over the ranks,
-one shard a rank. Rank 0 alone wipes -Pout= and writes the outputs; after
-the depth-map gather it alone fuses, meshes and textures
+(parallel/distributed.py) and each rank takes one card, LOCAL_RANK %
+device_count (the card the ranks share where they outnumber the cards):
+-Pdevice=cuda then means that card, a device named must be it (or cpu
+under gloo), and a list raises: on one host, use the mesh. Every rank
+runs the replicated stages (features, RANSAC, PnP, triangulation) on its
+device; matching, bundle adjustment and the depth maps run sharded over
+the ranks, one shard a rank, in rank order as the JAX package's process
+mesh. Rank 0 alone wipes -Pout= and writes the outputs; after the
+depth-map gather it alone fuses, meshes and textures
 (mvs/pipeline.py::run_mvs).
 """
 
@@ -57,13 +55,11 @@ def print_usage() -> None:
   -Pcamera-model=simple|simple-radial|distortion   (default simple-radial)
   -Pdevice=cuda|cpu|<list>           where the work runs (default cuda:
                                      every visible card as one mesh, or
-                                     fail; under torchrun the rank's
-                                     block of cards, cards / local ranks
-                                     of them; cpu runs the kernels' plain
+                                     fail; under torchrun the rank's one
+                                     card; cpu runs the kernels' plain
                                      PyTorch versions; a list such as
                                      cuda:0,cuda:1 or cpu,cpu names the
-                                     mesh's shards, under torchrun the
-                                     rank's, from its first card)
+                                     mesh's shards, outside torchrun)
   -Pfeature-detector=sift|orb        (default sift; orb = FAST-9 + Harris on
                                      an 8-level pyramid, rotated BRIEF)
   -Pfeature-limit=N                  max features per image (default 10000,
@@ -241,18 +237,17 @@ def _device(args: AppArgs):
 
 
 def _log_devices(mesh) -> None:
-    """One line a device of the mesh (under torchrun, of the rank's, each
-    line tagged with the rank): its card's name and UUID."""
+    """One line a device of the mesh (under torchrun the rank's one
+    device, the line tagged with the rank): its card's name and UUID."""
     import torch
 
-    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import _card_id, process_count
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import _card_id
 
-    whose = "rank's device" if process_count() > 1 else "mesh device"
     for i, dev in enumerate(mesh.devices):
         where = (f"{torch.cuda.get_device_name(dev)}, {_card_id(dev)}" if dev.type == "cuda"
                  else "cpu")
         log.info(f"device: {where}" if len(mesh) == 1 else
-                 f"{whose} {i} of {len(mesh)}: {dev}, {where}")
+                 f"mesh device {i} of {len(mesh)}: {dev}, {where}")
 
 
 def _run_profiled(args: AppArgs, mesh, run) -> int:
@@ -291,10 +286,6 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, mesh) -> int:
         colorize_points,
         list_images,
         load_gray_batch,
-    )
-    from sfm_mvs_pipeline_tpu_torch.utils.ply import (
-        write_camera_frustums_ply,
-        write_ply_points,
     )
     from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
     from sfm_mvs_pipeline_tpu_torch.utils.stats import write_reprojection_stats
@@ -384,18 +375,7 @@ def _run_inner(args: AppArgs, out_dir: str, image_args: list, mesh) -> int:
         colorize_points(scene)
     if distributed.process_index() == 0:
         with stage("outputs"):
-            live = scene.point_valid
-            write_ply_points(
-                os.path.join(out_dir, "pointcloud_sparse.ply"),
-                scene.points[live],
-                scene.colors[live] if args.is_flag("colored") else None,
-            )
-            write_camera_frustums_ply(
-                os.path.join(out_dir, "cameras_recovered.ply"),
-                scene.poses[scene.recovered],
-                scene.intrinsics[0],
-                (w, h),
-            )
+            _write_sparse(scene, out_dir, args.is_flag("colored"))
             if args.is_flag("stats"):
                 st = write_reprojection_stats(scene, out_dir)
                 log.info(f"reprojection error: mean {st['mean']:.3f} median {st['median']:.3f}")
@@ -432,7 +412,6 @@ def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, mesh) -> int:
     without repeating SfM (reference mvs.bin parity)."""
     from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene, save_scene
     from sfm_mvs_pipeline_tpu_torch.utils.images import colorize_points
-    from sfm_mvs_pipeline_tpu_torch.utils.ply import write_camera_frustums_ply, write_ply_points
 
     scene = load_scene(resume_path)
     log.info(f"resumed scene: {scene.n_shots} shots, {scene.n_points} points, "
@@ -443,22 +422,24 @@ def _run_resumed(args: AppArgs, out_dir: str, resume_path: str, mesh) -> int:
         # re-save the checkpoint into the (wiped) workdir so resumed runs keep
         # the artifact contract of full runs and can themselves be resumed
         save_scene(scene, os.path.join(out_dir, "scene.npz"))
-        live = scene.point_valid
-        write_ply_points(
-            os.path.join(out_dir, "pointcloud_sparse.ply"),
-            scene.points[live],
-            scene.colors[live] if args.is_flag("colored") else None,
-        )
-        write_camera_frustums_ply(
-            os.path.join(out_dir, "cameras_recovered.ply"),
-            scene.poses[scene.recovered],
-            scene.intrinsics[0],
-            scene.image_size,
-        )
+        _write_sparse(scene, out_dir, args.is_flag("colored"))
     if args.is_flag("dense"):
         _run_dense(args, scene, out_dir, mesh)
     log.info("done")
     return 0
+
+
+def _write_sparse(scene, out_dir: str, colored: bool) -> None:
+    """pointcloud_sparse.ply (the live points, colored when asked) and
+    cameras_recovered.ply (a frustum a recovered shot)."""
+    from sfm_mvs_pipeline_tpu_torch.utils.ply import write_camera_frustums_ply, write_ply_points
+
+    live = scene.point_valid
+    write_ply_points(os.path.join(out_dir, "pointcloud_sparse.ply"), scene.points[live],
+                     scene.colors[live] if colored else None)
+    write_camera_frustums_ply(os.path.join(out_dir, "cameras_recovered.ply"),
+                              scene.poses[scene.recovered], scene.intrinsics[0],
+                              scene.image_size)
 
 
 def _extract_features(detector: str, imgs_d, cap_env: int):

@@ -12,10 +12,10 @@ exporter's undistorted-image handoff (ref: OpenMvsUtils.cpp:136-152):
 
 Every view's depth map comes from one function, depth_map_view, and
 depth_maps_by_view runs it over the views: on one device for every view,
-and over more shards (the cards of this process's mesh, or torchrun's
-ranks) for each shard's block of the views, each card in a thread of its
-own, gathered on the first card in view order, so the depth maps do not
-depend on the shard count. Fusion, meshing and writing run once: in a
+and over more shards (the cards of this process's mesh, each in a thread
+of its own, or torchrun's ranks, one device each) for each shard's block
+of the views, gathered in view order, so the depth maps do not depend on
+the shard count. Fusion, meshing and writing run once: in a
 mesh on its first card; under torchrun on rank 0 alone, as the other
 ranks return after the gather (no collective follows it).
 `patchmatch` runs classic PatchMatch in the rectified frame of each pair
@@ -103,8 +103,9 @@ def run_mvs(scene, out_dir: str, cfg: MVSConfig | None = None, log=lambda *a: No
             device: torch.device | str | None = None, devices=None) -> dict:
     """Densify (and optionally mesh) a reconstructed scene on the mesh
     `devices`, or `device` (give one: a Mesh or a resolve_devices spec;
-    default every visible card; raises without one): the depth maps
-    view-sharded over its cards, everything else on its first.
+    default every visible card; raises without one; under torchrun the
+    rank's card): the depth maps view-sharded over its cards (or the
+    ranks), everything else on its first.
     Writes pointcloud_dense.ply (+ mesh_dense.ply) into out_dir. Returns
     results: the depth maps and valids, and on rank 0 (every run outside a
     process group) the dense cloud and mesh."""

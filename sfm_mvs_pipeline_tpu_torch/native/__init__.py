@@ -59,11 +59,6 @@ def _build_and_load() -> ctypes.CDLL | None:
         ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
     ]
-    lib.sfm_deinterleave.restype = ctypes.c_int
-    lib.sfm_deinterleave.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_void_p,
-    ]
     return lib
 
 
@@ -139,15 +134,3 @@ def write_ply_native(
     )
     return rc == 0
 
-
-def deinterleave(
-    raw: bytes | np.ndarray, nv: int, stride: int, offset: int, count: int
-) -> np.ndarray | None:
-    """Strided byte gather for binary PLY payload parsing."""
-    lib = _lib()
-    if lib is None:
-        return None
-    src = np.frombuffer(raw, np.uint8) if isinstance(raw, bytes) else raw
-    out = np.empty(nv * count, np.uint8)
-    rc = lib.sfm_deinterleave(src.ctypes.data, nv, stride, offset, count, out.ctypes.data)
-    return out if rc == 0 else None

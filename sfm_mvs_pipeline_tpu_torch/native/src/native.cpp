@@ -243,16 +243,4 @@ int sfm_write_ply(const char* path, int64_t nv, const float* xyz,
   return fclose(f) == 0 ? rc : -1;
 }
 
-// Deinterleave a binary PLY vertex payload: in = nv x stride bytes,
-// copies `count` bytes from `offset` of each record into out (packed).
-// Lets Python parse the header and hand the hot byte-shuffle to C++.
-int sfm_deinterleave(const uint8_t* in, int64_t nv, int32_t stride,
-                     int32_t offset, int32_t count, uint8_t* out) {
-  if (offset + count > stride) return -1;
-#pragma omp parallel for schedule(static)
-  for (int64_t i = 0; i < nv; ++i)
-    memcpy(out + i * count, in + i * stride + offset, count);
-  return 0;
-}
-
 }  // extern "C"

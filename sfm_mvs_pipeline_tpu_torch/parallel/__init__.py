@@ -2,9 +2,8 @@
 
 Port of sfm_mvs_pipeline_tpu/parallel/. The JAX package runs one SPMD
 program over a device mesh of processes x local devices; the port runs
-the cards of one process as a mesh of threads (mesh.py), one process per
-rank (launched by torchrun), or both: each rank holding a block of its
-host's cards, the data axis world x L shards in rank-major order:
+either the cards of one process as a mesh of threads (mesh.py) or one
+process per rank (launched by torchrun), each on one device:
 
   * PAIRS  — descriptor matching shards the pair list (matching.py)
   * POINTS — bundle adjustment shards points and their observations; the

@@ -2,17 +2,15 @@
 the reduced camera system is summed over the shards.
 
 Port of sfm_mvs_pipeline_tpu/parallel/ba.py (the multi-chip DENSE_SCHUR
-replacement), over the shards this process holds (a card of the mesh, a
-rank under torchrun, or one of a rank's devices: world x L shards;
-parallel/distributed.py::Shards; the CLI shards it over the ranks only,
-sfm/incremental.py::_SHARDED_BA_MIN_OBS):
+replacement), over the shards this process holds (a card of the mesh,
+or a rank under torchrun; parallel/distributed.py::Shards; the CLI
+shards it over the ranks only, sfm/incremental.py::_SHARDED_BA_MIN_OBS):
   * points are split into contiguous blocks balanced by observation count,
     one per shard, each with its points' observations (shard_scene_by_points)
   * each shard builds its block's partial system with the one-device build
     functions of sfm/ba.py, and one sum per LM build adds the undamped
     terms (Hcc, g, S_corr, rhs_corr, cost) before damping: in a mesh in
-    card order on the first card, under torchrun by an all-reduce (a rank
-    of several devices sums its own first, in card order)
+    card order on the first card, under torchrun by an all-reduce
   * every shard solves the summed system, the same bits on each, with the
     one-device solver (BAConfig.solver) and back-substitutes its own points
   * the trial cost is summed before the accept test, so every shard takes
@@ -140,7 +138,7 @@ def run_bundle_adjustment_sharded(
     run_bundle_adjustment's arguments and result dict. Work runs in `dtype`
     on each shard's device: each device of the mesh `device` (the JAX
     package's mesh: a Mesh or a resolve_devices spec; default every
-    visible card; under torchrun the rank's devices)."""
+    visible card; under torchrun the rank's device)."""
     shards = Shards(device)
     check_agree("run_bundle_adjustment_sharded", points, poses, intr, cam_of_shot, obs_point,
                 obs_shot, obs_uv, obs_w, intr_mask, pose_free)

@@ -1,6 +1,6 @@
 """Multi-process runtime: process-group bring-up, host-level work sharding
-and the collectives the sharded paths use, over ranks, over the cards
-of one process's mesh, or over both.
+and the collectives the sharded paths use, over ranks or over the cards of
+one process's mesh.
 
 Port of sfm_mvs_pipeline_tpu/parallel/distributed.py. torchrun starts one
 process per rank and exports RANK, WORLD_SIZE, LOCAL_RANK,
@@ -8,19 +8,16 @@ LOCAL_WORLD_SIZE, MASTER_ADDR and MASTER_PORT; initialize_distributed
 reads them. In a single process everything degrades to no-ops, so the
 pipeline code is the same either way.
 
-The sharded functions are written once, over Shards: the shards this
-process holds of world x L, L devices a rank (every card of the mesh in
-one process; under torchrun the rank's block of its host's cards,
-rank_cards, or one card). Shard k of rank r is global shard r L + k, the
-process-major order of the JAX package's jax.devices() after
-jax.distributed.initialize. Shards.run calls the function once a shard,
-each in a thread of its own under its card and a stream of its own where
-a process holds several, and the function's collectives
-(Shard.all_reduce_sum, all_gather_cat, broadcast) meet in two levels:
-the threads of a process sum in card order on its first card and
-concatenate there in card order, then that one thread alone takes the
-result through the process group, so repeated runs give the same bits
-and a gather is in global shard order.
+The sharded functions are written once, over Shards, in one of two
+shapes. A process's mesh (no process group of more than one rank): one
+shard a device, each in a thread of its own under its card and a stream
+of its own; their collectives (Shard.all_reduce_sum, all_gather_cat,
+broadcast) meet at a rendezvous of the threads, which sums in card order
+on the first device and concatenates there in card order, so repeated
+runs give the same bits. torchrun's ranks, one device each: one shard a
+rank, shard r on rank r (the process-major order of the JAX package's
+jax.devices() after jax.distributed.initialize), and the collectives are
+the process group's.
 
 The backend follows a stated rule, never a caught failure: nccl when
 every local rank has a card of its own, gloo when ranks share a card or run
@@ -48,8 +45,6 @@ from sfm_mvs_pipeline_tpu_torch.parallel.mesh import (
     block,
     make_mesh,
     pad_to_multiple,
-    replicated,
-    shard_leading,
     world,
 )
 from sfm_mvs_pipeline_tpu_torch.utils import logger as logging
@@ -62,10 +57,6 @@ DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 log = logging.AppLogger("Distributed")
 
-# the cards initialize_distributed bound this rank to (rank_cards), None
-# outside a group it made
-_RANK_CARDS: list[int] | None = None
-
 
 def choose_backend(local_world_size: int) -> str:
     """nccl when every local rank has its own card; gloo when ranks share
@@ -76,26 +67,6 @@ def choose_backend(local_world_size: int) -> str:
     return "gloo"
 
 
-def card_block(n_cards: int, local_rank: int, local_size: int) -> list[int]:
-    """The cards of local rank `local_rank` of `local_size` on a host of
-    n_cards: a block of n_cards // local_size from local_rank times that,
-    or, where the ranks outnumber the cards, the card local_rank % n_cards
-    they share."""
-    per = n_cards // local_size
-    if per == 0:
-        return [local_rank % n_cards]
-    return list(range(local_rank * per, (local_rank + 1) * per))
-
-
-def rank_cards() -> list[int]:
-    """This rank's cards, the first of them the one it is bound to: the
-    block initialize_distributed bound (card_block), or, in a group made
-    otherwise, the current card alone."""
-    if _RANK_CARDS is not None:
-        return list(_RANK_CARDS)
-    return [torch.cuda.current_device()]
-
-
 def initialize_distributed(backend: str | None = None,
                            timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> bool:
     """Bring up the default process group from torchrun's environment.
@@ -103,9 +74,9 @@ def initialize_distributed(backend: str | None = None,
     Returns True when a group of more than one rank is live. A no-op
     returning False in a single process (no WORLD_SIZE in the environment),
     and safe to call more than once. `backend` None takes choose_backend's
-    rule; each rank takes its block of cards (card_block) and is bound to
-    the first of them; it logs every card of the block."""
-    global _RANK_CARDS
+    rule; each rank is bound to card LOCAL_RANK % device_count (one card a
+    rank, or the card the ranks share under gloo where they outnumber the
+    cards), and logs it."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -121,8 +92,7 @@ def initialize_distributed(backend: str | None = None,
         backend = choose_backend(local_size)
     card = None
     if n_cards:
-        _RANK_CARDS = card_block(n_cards, local_rank, local_size)
-        card = torch.device("cuda", _RANK_CARDS[0])
+        card = torch.device("cuda", local_rank % n_cards)
         torch.cuda.set_device(card)
     # under nccl the group is bound to the rank's card, so barrier and the
     # object collectives run there without torch guessing the device
@@ -130,17 +100,15 @@ def initialize_distributed(backend: str | None = None,
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=size,
                             timeout=timeout, **bound)
     logging.set_rank(rank, size)
-    others = "".join(f"; its card {c}: {_card_id(torch.device('cuda', c))}"
-                     for c in (_RANK_CARDS or [])[1:])
     where = (f"{local_size} local rank(s) on {n_cards} card(s); this rank's card: "
-             f"{card.index} {_card_id(card)}{others}" if n_cards
+             f"{card.index} {_card_id(card)}" if n_cards
              else f"{local_size} local rank(s), no card")
     log.info(f"process group: rank {rank} of {size}, backend {backend} ({where})")
-    idle = n_cards % local_size if n_cards > local_size else 0
-    if idle and local_rank == 0:
-        log.warn(f"{idle} of {n_cards} cards stay idle: {local_size} local ranks take "
-                 f"{n_cards // local_size} card(s) each; on one host, one process over "
-                 f"every card (-Pdevice=cuda without torchrun) uses them all")
+    idle = n_cards - local_size
+    if idle > 0 and local_rank == 0:
+        log.warn(f"{idle} of {n_cards} cards stay idle: {local_size} local ranks take one "
+                 f"card each; on one host, one process over every card (-Pdevice=cuda "
+                 f"without torchrun) uses them all")
     return size > 1
 
 
@@ -152,12 +120,10 @@ def _card_id(card: torch.device) -> str:
 
 def shutdown_distributed() -> None:
     """Leave the default process group, if this process joined one."""
-    global _RANK_CARDS
     dist = _dist()
     if dist is not None:
         dist.destroy_process_group()
         logging.set_rank(0, 1)
-        _RANK_CARDS = None
 
 
 def process_index() -> int:
@@ -190,60 +156,49 @@ def _dist():
 
 
 def _to_wire(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
-    """The tensor a collective sends: on the backend's device (the card
-    the rank is bound to under nccl, whichever card the calling thread
-    works on; the CPU under gloo), bool as uint8; a fresh copy when `copy`
-    (for the collectives that work in place)."""
-    wire = (torch.device("cuda", rank_cards()[0])
+    """The tensor a collective sends: on the backend's device (the rank's
+    card under nccl, the CPU under gloo), bool as uint8; a fresh copy when
+    `copy` (for the collectives that work in place)."""
+    wire = (torch.device("cuda", torch.cuda.current_device())
             if _dist().get_backend() == "nccl" else torch.device("cpu"))
     dtype = torch.uint8 if t.dtype == torch.bool else t.dtype
     return t.to(device=wire, dtype=dtype, copy=copy).contiguous()
 
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    w = _to_wire(t, copy=True)
-    _dist().all_reduce(w)
-    return w.to(device=t.device, dtype=t.dtype)
-
-
-def _all_gather(t: torch.Tensor) -> torch.Tensor:
-    dist = _dist()
-    w = _to_wire(t)
-    parts = [torch.empty_like(w) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, w)
-    return torch.cat(parts).to(device=t.device, dtype=t.dtype)
-
-
-def _broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
-    w = _to_wire(t, copy=True)
-    _dist().broadcast(w, src)
-    return w.to(device=t.device, dtype=t.dtype)
-
-
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of t over the ranks, on t's device (t itself in a single
     process)."""
-    if _dist() is None:
+    dist = _dist()
+    if dist is None:
         return t
     with stage("collective all_reduce"):
-        return _all_reduce(t)
+        w = _to_wire(t, copy=True)
+        dist.all_reduce(w)
+        return w.to(device=t.device, dtype=t.dtype)
 
 
 def all_gather_cat(t: torch.Tensor) -> torch.Tensor:
     """Every rank's t (equal shapes) concatenated along dim 0 in rank
     order, on t's device and in t's dtype."""
-    if _dist() is None:
+    dist = _dist()
+    if dist is None:
         return t
     with stage("collective all_gather"):
-        return _all_gather(t)
+        w = _to_wire(t)
+        parts = [torch.empty_like(w) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, w)
+        return torch.cat(parts).to(device=t.device, dtype=t.dtype)
 
 
 def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     """Rank src's t on every rank, on t's device."""
-    if _dist() is None:
+    dist = _dist()
+    if dist is None:
         return t
     with stage("collective broadcast"):
-        return _broadcast(t, src)
+        w = _to_wire(t, copy=True)
+        dist.broadcast(w, src)
+        return w.to(device=t.device, dtype=t.dtype)
 
 
 def broadcast_object(obj, src: int = 0):
@@ -325,10 +280,8 @@ def check_agree(what: str, *arrays) -> None:
     """Raise when the ranks hold different `arrays` at the entry of a
     sharded function: ranks that repeat the replicated stages and diverge
     (another view registered, a restart on one rank only) would otherwise
-    feed the collectives mismatched work. Called once a rank, from the
-    thread that calls the sharded function, before its shard threads
-    start: a tensor is fingerprinted where it lies (the rank's first
-    card), never once a card."""
+    feed the collectives mismatched work. A tensor is fingerprinted where
+    it lies (the rank's card)."""
     if _dist() is None:
         return
     seen = _gather_ints(digest(*arrays))
@@ -364,10 +317,9 @@ def _load_cuda_linalg(dev: torch.device) -> None:
 
 
 class _Rendezvous:
-    """Where the shard threads of one process meet for a collective: each
-    puts its tensor in its slot, the first shard's thread combines them
-    (and alone takes the result through the process group), each takes
-    the result."""
+    """Where the shard threads of a mesh meet for a collective: each puts
+    its tensor in its slot, the first shard's thread combines them, each
+    takes the result."""
 
     def __init__(self, n: int):
         self.slots = [None] * n
@@ -386,10 +338,11 @@ class _Rendezvous:
 
 
 class Shard:
-    """One shard of a sharded function: its global index among `count`
-    shards, its device, and the collectives over every shard. `local` is
-    its place among the shards of its process, `rv` their rendezvous (None
-    where the process holds one shard)."""
+    """One shard of a sharded function: its index among `count` shards,
+    its device, and the collectives over every shard: the threads' of a
+    mesh where the shards meet at a rendezvous `rv`, else the process
+    group's (a rank, or a mesh of one device, where they return t).
+    `local` is its place among the shards of its process."""
 
     def __init__(self, shards: Shards, local: int, rv=None):
         self.shards, self.local, self._rv = shards, local, rv
@@ -401,76 +354,52 @@ class Shard:
             return self._rv.exchange(self.local, t, combine)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of t over the shards, on this shard's device: a process's
-        shards summed in card order on its first card, then that sum over
-        the ranks."""
+        """The sum of t over the shards, on this shard's device; a mesh's
+        in card order on its first device."""
         if self._rv is None:
             return all_reduce_sum(t)
-        first, ranks = self.shards.first, self.shards.ranks
+        first = self.shards.first
 
         def total(parts):
             acc = parts[0].to(first, copy=True)
             for p in parts[1:]:
                 acc += p.to(first)
-            return _all_reduce(acc) if ranks else acc
+            return acc
 
         return _settled(self._meet("all_reduce", t, total).to(self.device, copy=True))
 
     def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
-        """Every shard's t (equal shapes) concatenated along dim 0 in global
-        shard order, on the first device this process holds (the same
-        tensor for every shard of the process): a process's shards in card
-        order, then the ranks in rank order."""
+        """Every shard's t (equal shapes) concatenated along dim 0 in shard
+        order; a mesh's on its first device (the same tensor for every
+        shard)."""
         if self._rv is None:
             return all_gather_cat(t)
-        first, ranks = self.shards.first, self.shards.ranks
-
-        def cat(parts):
-            mine = torch.cat([p.to(first) for p in parts])
-            return _all_gather(mine) if ranks else mine
-
-        return self._meet("all_gather", t, cat)
+        first = self.shards.first
+        return self._meet("all_gather", t, lambda parts: torch.cat([p.to(first) for p in parts]))
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Global shard src's t, on this shard's device."""
+        """Shard src's t, on this shard's device."""
         if self._rv is None:
             return broadcast(t, src)
-        per, ranks = len(self.shards.held), self.shards.ranks
-        src_rank, src_local = divmod(src, per)
-
-        def pick(parts):
-            if not ranks:
-                return parts[src_local]
-            return _broadcast(parts[src_local] if self.shards.rank == src_rank else parts[0],
-                              src_rank)
-
-        return _settled(self._meet("broadcast", t, pick).to(self.device, copy=True))
+        return _settled(self._meet("broadcast", t, lambda parts: parts[src])
+                        .to(self.device, copy=True))
 
 
 class Shards:
     """The shards this process holds of a sharded function's `count`, one
     a device it holds: in one process every device of the mesh (count =
-    its size); under torchrun the rank's L devices (resolve_devices: its
-    block of cards, one card, or a list), shards rank L to rank L + L - 1
-    of count = world x L, every rank holding the same L. `devices` is a
-    Mesh or a resolve_devices spec. `kind` names the shape in the logs."""
+    its size); under torchrun the rank's one device (resolve_devices: its
+    card, or the CPU under gloo), shard `rank` of count = world. `devices`
+    is a Mesh or a resolve_devices spec. `kind` names the shape in the
+    logs."""
 
     def __init__(self, devices=None):
         rank, size = world()
-        self.rank, self.ranks = rank, size > 1
+        self.ranks = size > 1
+        self.mesh = make_mesh(devices.devices if isinstance(devices, Mesh) else devices)
         if self.ranks:
-            from sfm_mvs_pipeline_tpu_torch import resolve_devices
-
-            spec = devices.devices if isinstance(devices, Mesh) else devices
-            self.mesh = Mesh(resolve_devices(spec))
-            per = len(self.mesh)
-            if not all_hosts_agree(per):  # a rectangle, as the JAX package's mesh
-                raise RuntimeError(f"the ranks hold different numbers of devices (this rank "
-                                   f"{per}: {','.join(map(str, self.mesh.devices))})")
-            self.held, self.count = [rank * per + j for j in range(per)], size * per
-            self.kind = "ranks" if per == 1 else f"shards ({size} ranks x {per} devices)"
+            self.held, self.count, self.kind = [rank], size, "ranks"
         else:
-            self.mesh = make_mesh(devices)
             self.held, self.count = list(range(len(self.mesh))), len(self.mesh)
             self.kind = "devices"
         self.devices = self.mesh.devices
@@ -486,33 +415,36 @@ class Shards:
         return cls(devices if devices is not None else device)
 
     def replicated(self, x) -> list[torch.Tensor]:
-        """x on the device of each shard this process holds, in shard order
-        (parallel/mesh.py::replicated)."""
-        return replicated(self.mesh, x)
+        """x on the device of each shard this process holds, in shard order;
+        one copy a distinct device (shards on one card share it)."""
+        t = torch.as_tensor(x)
+        copies = {dev: t.to(dev) for dev in dict.fromkeys(self.devices)}
+        return [copies[dev] for dev in self.devices]
 
     def leading(self, x, fill=0) -> list[torch.Tensor]:
-        """The blocks of x's leading axis (padded with `fill` to a multiple
-        of the shard count) of the shards this process holds, each on its
-        shard's device, in shard order: in a mesh every block
-        (parallel/mesh.py::shard_leading), under torchrun the rank's."""
-        if not self.ranks:
-            return shard_leading(self.mesh, x, fill)
-        padded = pad_to_multiple(np.asarray(torch.as_tensor(x).cpu()), self.count, fill)
-        return [torch.as_tensor(padded[slice(*block(len(x), i, self.count))], device=dev)
+        """The contiguous blocks of x's leading axis (padded with `fill` to
+        a multiple of the shard count) of the shards this process holds,
+        each on its shard's device, in shard order: in a mesh every block,
+        under torchrun the rank's."""
+        t = torch.as_tensor(x)
+        n = t.shape[0]
+        if n % self.count:
+            t = torch.as_tensor(pad_to_multiple(t.cpu().numpy(), self.count, fill))
+        return [t[slice(*block(n, i, self.count))].to(dev)
                 for i, dev in zip(self.held, self.devices)]
 
     def run(self, fn, *per_shard) -> list:
         """[fn(shard, *its items of per_shard) for each shard this process
         holds], in shard order; each of `per_shard` is a list with one item
-        a held shard (Shards.replicated, Shards.leading). One shard runs in
-        the calling thread. Several (a mesh, or a rank's devices) run each
-        in a thread of its own under its card: the first shard of a card
-        on the caller's current stream there, any other on a stream of its
-        own, each tagged in the log and its spans with its shard
-        (stage_timer.merge keeps each stage's longest shard). A failing
-        shard breaks the others' collectives, and the first failure is
-        raised; under torchrun the rank then fails, and with it the
-        collectives of the other ranks."""
+        a held shard (Shards.replicated, Shards.leading). One shard (a rank,
+        or a mesh of one device) runs in the calling thread. A mesh of
+        several runs each in a thread of its own under its card: the first
+        shard of a card on the caller's current stream there, any other on
+        a stream of its own, each tagged in the log and its spans with its
+        shard (stage_timer.merge keeps each stage's longest shard). A
+        failing shard breaks the others' collectives, and the first failure
+        is raised. Under torchrun a failing rank fails the collectives of
+        the other ranks."""
         if len(self.held) == 1:
             return [fn(Shard(self, 0), *(p[0] for p in per_shard))]
         streams, seen = [], set()

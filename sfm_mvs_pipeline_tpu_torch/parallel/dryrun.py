@@ -6,18 +6,16 @@ pair-sharded matching (fast and exact), one LM step of point-sharded
 bundle adjustment and view-sharded depth maps (sweep, rect, rect with SGM
 and PatchMatch) over the shards: the devices of a mesh in one process
 (as the JAX package's make_mesh(n_devices)), or the process group's
-ranks, each with one device or several (world x devices shards). On the
-card it launches every kernel source (K1, K1x, K2a, K3), so a first run
-builds each of them.
+ranks, one device each. On the card it launches every kernel source (K1,
+K1x, K2a, K3), so a first run builds each of them.
 
     python -m sfm_mvs_pipeline_tpu_torch.parallel.dryrun [--device cpu,cpu,cpu,cpu]
     python -m torch.distributed.run --standalone --nproc-per-node=2 \\
-        -m sfm_mvs_pipeline_tpu_torch.parallel.dryrun [--device cpu | cpu,cpu | cuda:0,cuda:0]
+        -m sfm_mvs_pipeline_tpu_torch.parallel.dryrun [--device cpu]
 
 The mesh prints one line a device, each rank one line, with the kernels'
-launch counts (by card where a rank holds several devices), and the run
-exits 0 when every path ran and every result has its shape and is
-finite.
+launch counts, and the run exits 0 when every path ran and every result
+has its shape and is finite.
 """
 
 from __future__ import annotations
@@ -26,37 +24,29 @@ import argparse
 import sys
 
 import numpy as np
-import torch
 
 
 def dryrun_multichip(n_devices: int, devices=None) -> None:
     """Run each sharded path once over n_devices shards: under torchrun the
-    world x L shards of the group (this process holding L of them, on
-    `devices`: a resolve_devices spec such as "cpu" or "cpu,cpu", by
-    default the rank's block of cards); else the mesh `devices` (a Mesh or
+    group's ranks (this process on `devices`, a resolve_devices spec such
+    as "cpu"; default the rank's card); else the mesh `devices` (a Mesh or
     a resolve_devices spec; default the first n_devices visible cards),
     which must have n_devices devices."""
     from sfm_mvs_pipeline_tpu_torch.ops.pairs import unordered_pairs
     from sfm_mvs_pipeline_tpu_torch.parallel.ba import run_bundle_adjustment_sharded
     from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards
     from sfm_mvs_pipeline_tpu_torch.parallel.matching import match_pairs_sharded
-    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import make_mesh, world
+    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import world
     from sfm_mvs_pipeline_tpu_torch.parallel.mvs import (
         compute_depth_maps_sharded,
         fixed_neighbor_table,
     )
     from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig
 
-    if world()[1] > 1:
-        shards = Shards(devices)
-        if shards.count != n_devices:
-            raise RuntimeError(f"dryrun over {n_devices} shards in a group of {shards.kind}, "
-                               f"{shards.count}")
-        where = shards.mesh
-    else:
-        where = make_mesh(devices if devices is not None else n_devices)
-        if len(where) != n_devices:
-            raise RuntimeError(f"dryrun over {n_devices} devices on a mesh of {len(where)}")
+    shards = Shards(devices if devices is not None or world()[1] > 1 else n_devices)
+    if shards.count != n_devices:
+        raise RuntimeError(f"dryrun over {n_devices} shards on {shards.count} {shards.kind}")
+    where = shards.mesh
     rng = np.random.default_rng(0)
 
     # --- pair-sharded matching
@@ -120,7 +110,6 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
 def main() -> int:
     from sfm_mvs_pipeline_tpu_torch.ops.kernels import match_kernel, pm_kernel, sgm_kernel
     from sfm_mvs_pipeline_tpu_torch.parallel.distributed import (
-        Shards,
         initialize_distributed,
         process_count,
         process_index,
@@ -131,8 +120,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="in one process the mesh, e.g. cuda:0,cuda:1 "
                     "or cpu,cpu,cpu,cpu (default every visible card); under torchrun the "
-                    "rank's devices: cpu, cpu,cpu, a list from its card, or its block of cards "
-                    "(default)")
+                    "rank's device: cpu, or its card (default)")
     args = ap.parse_args()
     kernels = (match_kernel.two_nn_batch_fused, match_kernel.two_nn_exact_batch,
                sgm_kernel.sgm_bidir, pm_kernel.pm_score_rect)
@@ -148,16 +136,10 @@ def main() -> int:
         sys.stdout.flush()
         return 0
     try:
-        shards = Shards(args.device)
-        dryrun_multichip(shards.count, shards.mesh)
-        head = f"dryrun rank {process_index()} of {process_count()}: OK; kernel launches "
-        if len(shards.devices) == 1:
-            sys.stdout.write(head + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)
-                             + "\n")
-        else:  # each card's, as in the mesh
-            sys.stdout.write(head + "by card " + ", ".join(
-                f"{k.__name__} " + "/".join(f"{c}:{n}" for c, n in sorted(k.by_card.items()))
-                for k in kernels) + f" on {shards.kind}\n")
+        dryrun_multichip(process_count(), args.device)
+        sys.stdout.write(f"dryrun rank {process_index()} of {process_count()}: OK; kernel "
+                         "launches " + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)
+                         + "\n")
         sys.stdout.flush()
     finally:
         shutdown_distributed()

@@ -4,11 +4,10 @@ Port of sfm_mvs_pipeline_tpu/parallel/matching.py, the data-parallel axis
 of the SfM frontend (the reference's OMP pair loop,
 UnorderedFeatureMatchingStrategy.cpp:40): the pair list is padded to a
 multiple of the shard count with pair (0, 0) and each shard (a card of
-the mesh, a rank under torchrun, or one of a rank's devices: world x L
-shards) matches one contiguous block of it, by its global index, with one
-launch of kernel K1 (K1x with `exact`); descriptors are replicated to
-each shard's device. The (P, F) outputs are gathered in global shard
-order, trimmed to the real pairs.
+the mesh, or a rank under torchrun) matches one contiguous block of it,
+by its index, with one launch of kernel K1 (K1x with `exact`);
+descriptors are replicated to each shard's device. The (P, F) outputs
+are gathered in shard order, trimmed to the real pairs.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ def match_pairs_sharded(
     ops/matching.py::match_pairs_batch on the same inputs: on the first
     device of the mesh `device` (the JAX package's mesh: a Mesh or a
     resolve_devices spec; default every visible card; under torchrun the
-    rank's devices, the same result on every rank). The JAX package's
+    rank's device, the same result on every rank). The JAX package's
     `chunk` is gone: each shard's block is one launch."""
     from sfm_mvs_pipeline_tpu_torch.ops.matching import match_pairs_batch
 

@@ -1,13 +1,14 @@
 """The device mesh of one process, and rank helpers.
 
-Port of sfm_mvs_pipeline_tpu/parallel/mesh.py. The port has two levels of
-parallelism, as the JAX package does: the cards of one host form a Mesh
-that one process drives (make_mesh, shard_leading, replicated: the
-counterparts of the JAX package's make_mesh, NamedSharding(P("data")) and
-NamedSharding(P())), and torchrun's ranks, one card each, split the work
-across processes (world, the default process group). A sharded function
-gives each shard, a card of the mesh or a rank, one contiguous block of
-its leading axis (block), as PartitionSpec("data") does.
+Port of sfm_mvs_pipeline_tpu/parallel/mesh.py. The port has two shapes of
+parallelism where the JAX package has one SPMD program: the cards of one
+host form a Mesh that one process drives (make_mesh; Shards.leading and
+Shards.replicated in distributed.py are the counterparts of the JAX
+package's NamedSharding(P("data")) and NamedSharding(P())), or
+torchrun's ranks, one device each, split the work across processes
+(world, the default process group). A sharded function gives each shard,
+a card of the mesh or a rank, one contiguous block of its leading axis
+(block), as PartitionSpec("data") does.
 
 The Mesh is a small immutable tuple of torch.device, not
 torch.distributed.DeviceMesh, which needs a process group.
@@ -55,27 +56,6 @@ def make_mesh(devices=None) -> Mesh:
             raise RuntimeError(f"a mesh of {devices} devices on a machine with {len(every)}")
         return Mesh(every[:devices])
     return Mesh(resolve_devices(devices))
-
-
-def shard_leading(mesh: Mesh, x, fill=0) -> list[torch.Tensor]:
-    """x's leading axis padded with `fill` to a multiple of the mesh's size,
-    one contiguous block on each device in mesh order."""
-    t = torch.as_tensor(x)
-    n = len(mesh)
-    lo_hi = [block(t.shape[0], i, n) for i in range(n)]
-    padded = torch.as_tensor(pad_to_multiple(t.cpu().numpy(), n, fill)) if t.shape[0] % n else t
-    return [padded[lo:hi].to(dev) for (lo, hi), dev in zip(lo_hi, mesh.devices)]
-
-
-def replicated(mesh: Mesh, x) -> list[torch.Tensor]:
-    """x on every device of the mesh, in mesh order; one copy a distinct
-    device (shards on one card share it)."""
-    t = torch.as_tensor(x)
-    copies = {}
-    for dev in mesh.devices:
-        if dev not in copies:
-            copies[dev] = t.to(dev)
-    return [copies[dev] for dev in mesh.devices]
 
 
 def world() -> tuple[int, int]:

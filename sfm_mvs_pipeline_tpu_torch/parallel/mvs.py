@@ -4,9 +4,9 @@ Port of sfm_mvs_pipeline_tpu/parallel/mvs.py (SURVEY.md §2.7 item (4),
 after the reference's per-view OpenMP threading inside openMVS, ref:
 src/photogrammetrie/mvs/MVS.cpp:29), with the JAX package's signature: a
 thin adapter over mvs/pipeline.py, whose depth_maps_by_view gives each
-shard (a card of this process's mesh, each in a thread of its own, a
-rank under torchrun, or one of a rank's devices) a contiguous block of
-the reference views by its global index, computes
+shard (a card of this process's mesh, each in a thread of its own, or
+a rank under torchrun) a contiguous block of the reference views by its
+index, computes
 each with the per-view function depth_map_view that run_mvs also runs,
 and gathers every view's depth (f32) and validity in view order. Images
 are replicated.
@@ -50,7 +50,7 @@ def compute_depth_maps_sharded(
     """Returns (depth (V, H, W) f32, valid (V, H, W) bool), the same on
     every rank. The JAX package's signature with its mesh as `device` (a
     Mesh or a resolve_devices spec; default every visible card; under
-    torchrun each rank's devices, world x L shards). The per-view ladder
+    torchrun each rank's device). The per-view ladder
     gives the sweep its planes and the rect and PatchMatch engines their
     depth range (its min and max); `max_disp` bounds the rect engine's
     disparities in every view (PatchMatch derives each view's own, as

@@ -122,14 +122,12 @@ class _BogusStart(Exception):
 
 # bundle adjustment runs point-sharded in a process group of N > 1 ranks
 # from N times this many live observations (the JAX package's threshold),
-# one shard a rank on the rank's first card, whatever devices each rank
-# holds. The cards of a process do not shard it, in a one-process mesh or
-# under a rank: their shards are threads that take turns at the
+# one shard a rank on the rank's card. The cards of a one-process mesh do
+# not shard it: their shards are threads that take turns at the
 # interpreter lock and the jacfwd lock and meet at a barrier for every
 # sum, and on four H100s that made the ORB render's SfM 2.2x slower than
 # one card (PERF.md, Findings). The JAX package shards it over its whole
-# mesh; parallel/ba.py::run_bundle_adjustment_sharded still takes any
-# Shards.
+# mesh; parallel/ba.py::run_bundle_adjustment_sharded still takes a mesh.
 _SHARDED_BA_MIN_OBS = 2048
 
 # homography-ratio pairs per batched RANSAC call (bounds the (chunk, K, F)
@@ -171,11 +169,10 @@ def reconstruct(
     pairs: (P, 2) candidate pairs from a pair policy. The SfM state runs in
     `dtype` on the first device of the mesh `devices`, or `device` (give
     one: a Mesh or a resolve_devices spec; default every visible card;
-    raises without one; under torchrun the rank's devices). Matching
-    shards over its devices (and the ranks: world x devices shards) past
-    the JAX package's gate; BA shards over torchrun's ranks past its gate,
-    one shard a rank on its first device, and runs on the first device in
-    a mesh (see _SHARDED_BA_MIN_OBS). Mutates `scene` in place; returns a
+    raises without one; under torchrun the rank's card). Matching shards
+    over the mesh's devices, or over the ranks, past the JAX package's
+    gate; BA shards over torchrun's ranks past its gate, and runs on the
+    first device in a mesh (see _SHARDED_BA_MIN_OBS). Mutates `scene` in place; returns a
     stats dict."""
     from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards, process_count
 

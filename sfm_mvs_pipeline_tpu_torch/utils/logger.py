@@ -4,10 +4,9 @@ Parity with the reference's logger (ref: src/photogrammetrie/util/AppLogger.{h,c
 5 levels TRACE..ERROR, one global level, ANSI colors on ttys (forceable),
 each line carrying elapsed seconds since process start + timestamp +
 component name (AppLogger.cpp:40-94). In a process group of more than one
-rank, each line also carries the rank (set_rank); a line from a shard
-thread (parallel/distributed.py::Shards.run: a mesh's, or a rank's that
-holds several devices) carries its global shard index and its device
-(shard_tag), so a record names rank and card: "r1/2 c3/4 cuda:3".
+rank, each line also carries the rank (set_rank: "r1/2"); a line from a
+shard thread of a mesh (parallel/distributed.py::Shards.run) carries its
+shard index and its device instead (shard_tag: "c3/4 cuda:3").
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ def set_rank(rank: int, world_size: int) -> None:
 @contextlib.contextmanager
 def shard_tag(index: int, count: int, device):
     """Tag the calling thread's lines with "c<index>/<count> <device>",
-    index the shard's global index among count."""
+    index the shard's place in a mesh of count."""
     _local.tag = f" c{index}/{count} {device}"
     try:
         yield
@@ -72,7 +71,7 @@ class AppLogger:
         use_color = _force_color or sys.stdout.isatty()
         elapsed = time.time() - _start
         ts = datetime.now().strftime("%H:%M:%S")
-        tag = _rank_tag + getattr(_local, "tag", "")
+        tag = getattr(_local, "tag", "") or _rank_tag
         line = f"[{elapsed:8.1f}s {ts} {_NAMES[level]:5s} {self.component}{tag}] {msg}"
         if use_color:
             line = _COLORS[level] + line + _RESET

@@ -177,7 +177,6 @@ def test_initialize_binds_the_rank_card_under_nccl(monkeypatch, capsys, local_ra
     monkeypatch.setattr(dist, "is_initialized", lambda: False)
     monkeypatch.setattr(dist, "init_process_group",
                         lambda b, **kw: calls.update(backend=b, **kw))
-    monkeypatch.setattr(D, "_RANK_CARDS", None)  # the block it binds, undone after the test
     for k, v in dict(RANK=str(local_rank), WORLD_SIZE="4", LOCAL_RANK=str(local_rank),
                      LOCAL_WORLD_SIZE="4").items():
         monkeypatch.setenv(k, v)
@@ -202,7 +201,6 @@ def stand_in_host(monkeypatch, cards: int, rank: int, world: int) -> dict:
     import torch
     import torch.distributed as dist
 
-    from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
     from sfm_mvs_pipeline_tpu_torch.utils import logger
 
     calls = {}
@@ -216,45 +214,17 @@ def stand_in_host(monkeypatch, cards: int, rank: int, world: int) -> dict:
     monkeypatch.setattr(dist, "is_initialized", lambda: False)
     monkeypatch.setattr(dist, "init_process_group",
                         lambda b, **kw: calls.update(backend=b, **kw))
-    monkeypatch.setattr(D, "_RANK_CARDS", None)  # the block it binds, undone after the test
     for k, v in dict(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                      LOCAL_WORLD_SIZE=str(world)).items():
         monkeypatch.setenv(k, v)
     return calls
 
 
-def test_initialize_binds_the_first_card_of_the_block(monkeypatch, capsys):
-    """Rank 1 of 2 on a host of four cards holds cards 2 and 3: it is bound
-    to card 2 (set_device, nccl's device_id), logs both cards, and
-    resolve_devices("cuda") is its block. The cards and the group are
-    stand-ins."""
-    import torch
-    import torch.distributed as dist
-
-    from sfm_mvs_pipeline_tpu_torch import resolve_devices
-    from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
-    from sfm_mvs_pipeline_tpu_torch.utils import logger
-
-    calls = stand_in_host(monkeypatch, cards=4, rank=1, world=2)
-    try:
-        assert D.initialize_distributed()
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-        assert resolve_devices("cuda") == (torch.device("cuda", 2), torch.device("cuda", 3))
-    finally:
-        logger.set_rank(0, 1)
-    assert calls["set"] == calls["device_id"] == torch.device("cuda", 2)
-    assert calls["backend"] == "nccl" and D.rank_cards() == [2, 3]
-    out = capsys.readouterr().out
-    assert "backend nccl (2 local rank(s) on 4 card(s); this rank's card: 2 GPU-uuid-of-2, PCI " \
-           "bus 26; its card 3: GPU-uuid-of-3, PCI bus 27)" in out, out
-
-
-@pytest.mark.parametrize("cards, idle", [(3, 1), (4, 0), (1, 0), (5, 1)])
+@pytest.mark.parametrize("cards, idle", [(3, 1), (4, 2), (1, 0), (5, 3), (2, 0)])
 def test_initialize_warns_of_idle_cards(monkeypatch, capsys, cards, idle):
-    """Two local ranks on a host whose cards do not split evenly between
-    them (3 or 5) leave the last card idle: local rank 0 says so once; on
-    4 cards, or one card the ranks share, every card is used and nothing
-    is said."""
+    """Two local ranks take one card each: on a host of more cards the
+    rest stay idle, and local rank 0 says so once; on two cards, or one
+    card the ranks share, every card is used and nothing is said."""
     from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
     from sfm_mvs_pipeline_tpu_torch.utils import logger
 
@@ -264,7 +234,7 @@ def test_initialize_warns_of_idle_cards(monkeypatch, capsys, cards, idle):
     finally:
         logger.set_rank(0, 1)
     out = capsys.readouterr().out
-    said = f"{idle} of {cards} cards stay idle: 2 local ranks take {cards // 2} card(s) each"
+    said = f"{idle} of {cards} cards stay idle: 2 local ranks take one card each"
     assert (said in out) == bool(idle) and ("stay idle" in out) == bool(idle), out
 
 
@@ -459,43 +429,53 @@ def test_cli_world4_insel(tmp_path):
         assert (out4 / name).read_bytes() == (out1 / name).read_bytes(), name
 
 
-# ------------------------------------------------ ranks by cards (2 x 2)
+# ------------------------------------- Shards and Shard at one device a rank
 
-_RANKS_BY_CARDS = r"""
-import json, os
+_TWO_RANKS = r"""
+import contextlib, io, json, os
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from sfm_mvs_pipeline_tpu_torch import resolve_devices
+from sfm_mvs_pipeline_tpu_torch.cli.app import main
 from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
 
 rank = int(os.environ["RANK"])
 D.initialize_distributed(backend="gloo")
 out = {}
-shards = D.Shards("cpu,cpu")
+shards = D.Shards("cpu")
 out["shape"] = [shards.count, shards.held, shards.kind]
 parts = [torch.as_tensor(np.random.default_rng(i).normal(size=1000) * 10 ** i)
-         for i in range(4)]
+         for i in range(2)]
 
 
 def one(sh):
     return {"index": sh.index, "sum": sh.all_reduce_sum(parts[sh.index]).tolist(),
             "cat": sh.all_gather_cat(parts[sh.index][:3] + 0).tolist(),
             "cat_bool": sh.all_gather_cat(torch.tensor([sh.index % 2 == 0])).tolist(),
-            "bc1": sh.broadcast(parts[sh.index], src=1).tolist(),
-            "bc2": sh.broadcast(parts[sh.index], src=2).tolist()}
+            "bc0": sh.broadcast(parts[sh.index], src=0).tolist(),
+            "bc1": sh.broadcast(parts[sh.index], src=1).tolist()}
 
 
 out["shards"] = shards.run(one)
-out["fold"] = ((parts[0] + parts[1]) + (parts[2] + parts[3])).tolist()
+out["fold"] = (parts[0] + parts[1]).tolist()
 out["parts"] = [p.tolist() for p in parts]
-blocks = shards.leading(np.arange(10), fill=-1)
-out["leading"] = [b.tolist() for b in blocks]
-# every rank must hold the same number of devices
-try:
-    D.Shards("cpu,cpu" if rank == 0 else "cpu")
-    out["unequal"] = "no error"
-except RuntimeError as e:
-    out["unequal"] = str(e)
+out["leading"] = [b.tolist() for b in shards.leading(np.arange(9), fill=-1)]
+# a rank holds one device: a list of several raises, before the CLI wipes -Pout=
+out["several"] = {}
+for what, call in (("resolve_devices", lambda: resolve_devices("cpu,cpu")),
+                   ("Shards", lambda: D.Shards("cpu,cpu"))):
+    try:
+        call()
+        out["several"][what] = "no error"
+    except RuntimeError as e:
+        out["several"][what] = str(e)
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    rc = main(["-Prun=photogrammetrie", "-Pdevice=cpu,cpu", "-Pimage=" + os.environ["IMAGES"],
+               "-Pout=" + os.environ["CLI_OUT"] % rank])
+out["several"]["cli"] = f"rc {rc}: {log.getvalue()}"
+out["cli_out_left"] = os.listdir(os.path.dirname(os.environ["CLI_OUT"]))
 D.shutdown_distributed()
 with open(os.environ["OUT"] % rank, "w") as f:
     json.dump(out, f)
@@ -504,45 +484,54 @@ print(f"rank {rank} OK", flush=True)
 
 
 @pytest.fixture(scope="module")
-def ranks_by_cards(tmp_path_factory):
-    """Each rank's results of _RANKS_BY_CARDS at 2 gloo ranks x 2 CPU shards."""
+def two_ranks(tmp_path_factory):
+    """Each rank's results of _TWO_RANKS at 2 gloo ranks of one CPU
+    shard each."""
     import json
 
-    pattern = str(tmp_path_factory.mktemp("rbc") / "r%d.json")
-    launch_ranks(["-c", _RANKS_BY_CARDS], 2, env={"OUT": pattern}, timeout=120)
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    (tmp / "cli").mkdir()
+    pattern = str(tmp / "r%d.json")
+    launch_ranks(["-c", _TWO_RANKS], 2, timeout=120,
+                 env={"OUT": pattern, "IMAGES": INSEL, "CLI_OUT": str(tmp / "cli" / "out%d")})
     return [json.load(open(pattern % r)) for r in range(2)]
 
 
-def test_ranks_by_cards_shards(ranks_by_cards):
-    """Rank r holds global shards 2r and 2r + 1 of 4; its leading blocks."""
-    for r, out in enumerate(ranks_by_cards):
-        assert out["shape"] == [4, [2 * r, 2 * r + 1], "shards (2 ranks x 2 devices)"]
-        assert [sh["index"] for sh in out["shards"]] == [2 * r, 2 * r + 1]
-        padded = list(range(10)) + [-1, -1]
-        assert out["leading"] == [padded[3 * (2 * r):3 * (2 * r + 1)],
-                                  padded[3 * (2 * r + 1):3 * (2 * r + 2)]]
+def test_ranks_by_cards_shards(two_ranks):
+    """Rank r holds shard r of 2, and its block of the leading axis."""
+    padded = list(range(9)) + [-1]
+    for r, out in enumerate(two_ranks):
+        assert out["shape"] == [2, [r], "ranks"]
+        assert [sh["index"] for sh in out["shards"]] == [r]
+        assert out["leading"] == [padded[5 * r:5 * (r + 1)]]
 
 
 @pytest.mark.parametrize("what", ["all_reduce_sum", "all_gather_cat", "broadcast"])
-def test_ranks_by_cards_collectives_in_global_order(ranks_by_cards, what):
-    """Two levels: a rank's shards sum in card order and the ranks then
-    add (bit for bit (p0 + p1) + (p2 + p3)); gathers in global shard order
-    (bool too); broadcast from a global shard index, on every shard."""
-    parts = ranks_by_cards[0]["parts"]
-    for out in ranks_by_cards:
+def test_ranks_by_cards_collectives_in_global_order(two_ranks, what):
+    """A rank's shard meets the others in the process group: the sum (bit
+    for bit p0 + p1), gathers in rank order (bool too), broadcast from
+    either rank, on every rank."""
+    parts = two_ranks[0]["parts"]
+    for out in two_ranks:
         for sh in out["shards"]:
             if what == "all_reduce_sum":
                 assert sh["sum"] == out["fold"]
             elif what == "all_gather_cat":
                 assert sh["cat"] == [x for p in parts for x in p[:3]]
-                assert sh["cat_bool"] == [True, False, True, False]
+                assert sh["cat_bool"] == [True, False]
             else:
-                assert sh["bc1"] == parts[1] and sh["bc2"] == parts[2]
+                assert sh["bc0"] == parts[0] and sh["bc1"] == parts[1]
 
 
-def test_ranks_by_cards_unequal_shard_counts_raise(ranks_by_cards):
-    for out in ranks_by_cards:
-        assert "the ranks hold different numbers of devices" in out["unequal"], out["unequal"]
+def test_ranks_by_cards_unequal_shard_counts_raise(two_ranks):
+    """A rank given cpu,cpu raises: resolve_devices, Shards and the CLI
+    (exit 1, before it wipes -Pout=), each naming the mesh instead."""
+    for out in two_ranks:
+        for what, said in out["several"].items():
+            assert "a rank holds one device, not cpu,cpu: a mesh of several devices is " \
+                   "-Pdevice=<list> without torchrun" in said, (what, said)
+        assert out["several"]["cli"].startswith("rc 1: ")
+        assert out["cli_out_left"] == []
 
 
 _FAILING_SHARD = r"""
@@ -556,72 +545,25 @@ D.initialize_distributed(backend="gloo")
 
 def one(sh):
     sh.all_reduce_sum(torch.ones(2))
-    if sh.index == 3:
-        raise ValueError("shard 3 fails")
+    if sh.index == 1:
+        raise ValueError("shard 1 fails")
     return sh.all_reduce_sum(torch.ones(2))
 
 
-D.Shards("cpu,cpu").run(one)
+D.Shards("cpu").run(one)
 print("finished", flush=True)
 """
 
 
 def test_ranks_by_cards_a_failing_shard_fails_every_rank():
-    """Shard 3 (rank 1's second) fails after one collective: rank 1 raises
-    it, and rank 0, waiting in the next sum, fails too, well within the
-    test's timeout (the group's own timeout is 10 minutes)."""
+    """Shard 1 (rank 1's) fails after one collective: rank 1 raises it,
+    and rank 0, waiting in the next sum, fails too, well within the test's
+    timeout (the group's own timeout is 10 minutes)."""
     import time
 
     t0 = time.perf_counter()
     res = run_ranks(["-c", _FAILING_SHARD], 2, timeout=60)
     assert time.perf_counter() - t0 < 60
     assert all(rc != 0 for rc, _ in res), res
-    assert "ValueError: shard 3 fails" in res[1][1]
+    assert "ValueError: shard 1 fails" in res[1][1]
     assert not any("finished" in out for _, out in res)
-
-
-@pytest.fixture(scope="module")
-def insel_2x2(tmp_path_factory):
-    """The CLI on insel at 2 gloo ranks x 2 CPU shards (-Pdevice=cpu,cpu a
-    rank), --dense --sgm --artifacts."""
-    out = tmp_path_factory.mktemp("cli_2x2") / "out"
-    outs = launch_ranks(["-m", "sfm_mvs_pipeline_tpu_torch", "-Prun=photogrammetrie",
-                         "-Pdevice=cpu,cpu", f"-Pimage={INSEL}", f"-Pout={out}", "--dense",
-                         "--sgm", "--artifacts", "--stats", "--stage-times"], 2, timeout=300)
-    return out, "".join(outs)
-
-
-def test_cli_2x2_rank0_writes(insel_2x2):
-    """3/3 views; the depth maps over 4 shards (3 views: shard 3 computes
-    none), each record naming rank and shard; only rank 0 wrote and fused."""
-    from sfm_mvs_pipeline_tpu_torch.utils.checkpoint import load_scene
-
-    out, log = insel_2x2
-    assert int(load_scene(str(out / "scene.npz")).recovered.sum()) == 3
-    stages = stage_names(log, 2)
-    for r in (0, 1):
-        assert f"MVS r{r}/2] view-sharded depth maps over 4 shards (2 ranks x 2 devices)" in log
-        assert f"rank's device 1 of 2: cpu, cpu" in log
-        assert "depth-map gather" in stages[r]
-        assert (f"PhotogrammetrieCli r{r}/2] reprojection error" in log) == (r == 0)
-    assert sum(f"r{i // 2}/2 c{i}/4 cpu] view" in log for i in range(4)) == 3
-    assert "fusion" in stages[0] and not {"fusion", "mesh", "texture"} & stages[1]
-    for name in ("pointcloud_sparse.ply", "scene.npz", "app.stat.csv", "pointcloud_dense.ply",
-                 "depth_0000.npy", "depth_0002.npy"):
-        assert (out / name).exists(), name
-
-
-def test_cli_2x2_depth_maps_equal_world1(insel_2x2, tmp_path):
-    """The depth maps of the 2 x 2 run are bit-equal to a world-1 run
-    resumed from its scene.npz, and so is the dense cloud."""
-    from sfm_mvs_pipeline_tpu_torch.cli.app import main
-
-    out4, _ = insel_2x2
-    out1 = tmp_path / "w1"
-    assert main(["-Prun=photogrammetrie", "-Pdevice=cpu", f"-Presume={out4 / 'scene.npz'}",
-                 f"-Pout={out1}", "--dense", "--sgm", "--artifacts", "-Ploglevel=4"]) == 0
-    for i in range(3):
-        d1 = np.load(out1 / f"depth_{i:04d}.npy")
-        assert (d1 > 0).mean() > 0.5
-        np.testing.assert_array_equal(np.load(out4 / f"depth_{i:04d}.npy"), d1)
-    assert (out4 / "pointcloud_dense.ply").read_bytes() == (out1 / "pointcloud_dense.ply").read_bytes()

@@ -9,10 +9,10 @@ threads.
 Tolerances:
   * resolve_devices: the list forms exactly; "cuda" and torch.device("cuda")
     alike; no card, a card that does not exist, a mesh that mixes the CPU
-    and cards, and inside a process group a list that does not start at
-    the rank's card, a card outside its block or the CPU under nccl raise;
-    a rank's block of cards (card_block) for ranks by cards, one card a
-    rank (phase 16's shape) and ranks sharing a card (phase 15's).
+    and cards, and inside a process group of more than one rank a list,
+    another card than the rank's or the CPU under nccl raise; the one
+    card a rank takes (LOCAL_RANK % device_count): its own (phase 16's
+    shape) or one the ranks share (phase 15's).
   * matching: bit-equal to match_pairs_batch, and to the JAX package's
     match_pairs_sharded on its make_mesh(4) (jnp backend) on integer
     descriptors (idx at valid queries, masks, distances), fast and exact.
@@ -122,83 +122,107 @@ def gloo_group():
 
 
 def test_default_under_a_process_group_is_the_ranks_card(gloo_group, four_cards, monkeypatch):
-    """In a process group made without initialize_distributed the default
-    is the rank's current card alone; a list must start there and hold no
-    other card (the card may repeat); the CPU under gloo, also as a list;
-    another card than the rank's, a mesh that mixes the CPU and cards, and
-    the CPU under nccl raise."""
+    """In a process group of two ranks (the size a stand-in) made without
+    initialize_distributed the default is the rank's current card; a
+    device named must be it, or the CPU under gloo; a list of several
+    devices raises, naming the mesh instead; another card, a mesh that
+    mixes the CPU and cards, and the CPU under nccl raise."""
     import torch.distributed as dist
 
     from sfm_mvs_pipeline_tpu_torch import resolve_devices
     from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards
 
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
     own = (torch.device("cuda", 2),)
     assert resolve_devices(None) == resolve_devices("cuda") == own
     assert resolve_devices(torch.device("cuda")) == resolve_devices("cuda:2") == own
     assert resolve_devices("cpu") == (torch.device("cpu"),)
-    assert resolve_devices("cpu,cpu") == (torch.device("cpu"),) * 2
-    assert resolve_devices("cuda:2,cuda:2") == own * 2
-    for spec in ("cuda:1", torch.device("cuda", 0), "cuda:0,cuda:1"):
+    for spec in ("cpu,cpu", "cuda:2,cuda:2", "cuda:0,cuda:1", ["cpu", "cpu", "cpu"]):
+        with pytest.raises(RuntimeError, match="a rank holds one device, not .*: a mesh of "
+                                               "several devices is -Pdevice=<list> without "
+                                               "torchrun"):
+            resolve_devices(spec)
+    for spec in ("cuda:1", torch.device("cuda", 0)):
         with pytest.raises(RuntimeError, match="this rank's card is cuda:2"):
             resolve_devices(spec)
-    with pytest.raises(RuntimeError, match="this rank holds cuda:2, not cuda:3"):
-        resolve_devices("cuda:2,cuda:3")
     with pytest.raises(ValueError, match="a mesh mixes the CPU and cards"):
         resolve_devices("cpu,cuda:2")
+    shards = Shards("cpu")
+    assert (shards.count, shards.held, shards.devices) == (2, [0], (torch.device("cpu"),))
     monkeypatch.setattr(dist, "get_backend", lambda *a: "nccl")
     with pytest.raises(RuntimeError, match="on the CPU only under gloo"):
         resolve_devices("cpu")
-    monkeypatch.undo()
-    shards = Shards("cpu")
-    assert (shards.count, shards.held, shards.devices) == (1, [0], (torch.device("cpu"),))
 
 
-@pytest.mark.parametrize("cards, local_rank, local_size, block", [
-    (4, 1, 2, [2, 3]),  # ranks by cards: 2 ranks x 2 cards
-    (4, 0, 2, [0, 1]),
-    (8, 1, 2, [4, 5, 6, 7]),
-    (4, 3, 4, [3]),  # phase 16's shape: one card a rank
-    (1, 1, 2, [0]),  # phase 15's: two ranks share the card (gloo)
-    (2, 3, 4, [1]),
-    (3, 1, 2, [1]),  # a card left over stays idle
-], ids=["2x2-r1", "2x2-r0", "2x4-r1", "4x1-r3", "2-ranks-1-card", "4-ranks-2-cards", "3-cards"])
-def test_rank_block_of_cards(gloo_group, four_cards, monkeypatch, cards, local_rank,
-                             local_size, block):
-    """A rank's block (card_block): device_count // LOCAL_WORLD_SIZE cards
-    from LOCAL_RANK times that, or the shared card; under the group
-    resolve_devices' "cuda" is the block, a list from its first card within
-    it is accepted, anything else raises."""
+@pytest.mark.parametrize("cards, local_rank, local_size, card", [
+    (4, 1, 2, 1),  # two ranks on four cards: cards 2 and 3 stay idle
+    (4, 0, 2, 0),
+    (8, 1, 2, 1),
+    (4, 3, 4, 3),  # phase 16's shape: a card each
+    (1, 1, 2, 0),  # phase 15's: two ranks share the card (gloo)
+    (2, 3, 4, 1),
+    (3, 1, 2, 1),
+], ids=["4-cards-r1-of-2", "4-cards-r0-of-2", "8-cards-r1-of-2", "4x1-r3", "2-ranks-1-card",
+        "4-ranks-2-cards", "3-cards"])
+def test_rank_block_of_cards(monkeypatch, capsys, cards, local_rank, local_size, card):
+    """The one card a rank takes: initialize_distributed binds card
+    LOCAL_RANK % device_count (set_device, and nccl's device_id where
+    every local rank has a card of its own); in the group resolve_devices'
+    "cuda" and None are that card, the card named is accepted, the CPU
+    only under gloo, and another card or a list raises. The cards and
+    the group are stand-ins."""
+    import torch.distributed as dist
+
     from sfm_mvs_pipeline_tpu_torch import resolve_devices
     from sfm_mvs_pipeline_tpu_torch.parallel import distributed as D
+    from sfm_mvs_pipeline_tpu_torch.utils import logger
+    from tests.test_torch_distributed import stand_in_host
 
-    assert D.card_block(cards, local_rank, local_size) == block
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: max(cards, 4))
-    monkeypatch.setattr(D, "_RANK_CARDS", block)
-    own = tuple(torch.device("cuda", c) for c in block)
-    assert resolve_devices("cuda") == resolve_devices(None) == own
-    assert resolve_devices(",".join(map(str, own))) == own
-    assert resolve_devices(f"{own[0]},{own[0]}") == own[:1] * 2
-    with pytest.raises(RuntimeError, match=f"this rank's card is {own[0]}"):
-        resolve_devices(",".join(map(str, own[::-1] + own[:1])) if len(own) > 1 else
-                        f"cuda:{(block[0] + 1) % 4}")
-    outside = next(c for c in range(4) if c not in block)
-    with pytest.raises(RuntimeError, match="a rank takes cards of its own block only"):
-        resolve_devices(f"{own[0]},cuda:{outside}")
+    calls = stand_in_host(monkeypatch, cards=cards, rank=local_rank, world=local_size)
+    try:
+        assert D.initialize_distributed()
+    finally:
+        logger.set_rank(0, 1)
+    own = torch.device("cuda", card)
+    backend = "nccl" if cards >= local_size else "gloo"
+    assert calls["set"] == own and calls["backend"] == backend
+    assert calls.get("device_id") == (own if backend == "nccl" else None)
+    assert f"this rank's card: {card} GPU-uuid-of-{card}" in capsys.readouterr().out
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda *a: local_rank)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: local_size)
+    monkeypatch.setattr(dist, "get_backend", lambda *a: backend)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: card)
+    assert resolve_devices("cuda") == resolve_devices(None) == resolve_devices(str(own)) == (own,)
+    if backend == "gloo":
+        assert resolve_devices("cpu") == (torch.device("cpu"),)
+    else:
+        with pytest.raises(RuntimeError, match="on the CPU only under gloo"):
+            resolve_devices("cpu")
+    if cards > 1:
+        with pytest.raises(RuntimeError, match=f"this rank's card is {own}"):
+            resolve_devices(f"cuda:{(card + 1) % cards}")
+    with pytest.raises(RuntimeError, match="a rank holds one device"):
+        resolve_devices(f"{own},{own}")
 
 
 # ------------------------------------------------------------ mesh helpers
 
 
 def test_shard_leading_and_replicated():
-    from sfm_mvs_pipeline_tpu_torch.parallel.mesh import make_mesh, replicated, shard_leading
+    """Shards.leading: one contiguous block a shard of the leading axis
+    padded with `fill`; Shards.replicated: x on each shard's device, one
+    copy a distinct device."""
+    from sfm_mvs_pipeline_tpu_torch.parallel.distributed import Shards
 
-    mesh = make_mesh("cpu,cpu,cpu,cpu")
+    shards = Shards("cpu,cpu,cpu,cpu")
     x = np.arange(10 * 3).reshape(10, 3)
-    blocks = shard_leading(mesh, x, fill=-1)
+    blocks = shards.leading(x, fill=-1)
     assert [b.shape[0] for b in blocks] == [3, 3, 3, 3]
     np.testing.assert_array_equal(torch.cat(blocks)[:10].numpy(), x)
     assert (torch.cat(blocks)[10:] == -1).all()
-    reps = replicated(mesh, x)
+    assert [b.shape[0] for b in shards.leading(x[:8])] == [2, 2, 2, 2]  # no padding needed
+    reps = shards.replicated(x)
     assert len(reps) == 4 and all(r is reps[0] for r in reps)  # one copy a distinct device
     np.testing.assert_array_equal(reps[0].numpy(), x)
 

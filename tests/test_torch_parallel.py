@@ -2,9 +2,9 @@
 against the JAX package's sharded functions on the 8-device CPU mesh.
 
 The port runs in real gloo process groups of 1, 2 and 4 ranks of one
-device each and of 2 ranks of two ("2x2": -Pdevice=cpu,cpu a rank, so 4
-shards in rank-major order, two threads a rank) (one `python -c` worker a
-rank, one torch thread each, launched by
+device each, and as one process's mesh of four CPU devices ("mesh4":
+-Pdevice=cpu,cpu,cpu,cpu in a group of one rank, so 4 shards, a thread
+each) (one `python -c` worker a rank, one torch thread each, launched by
 tests/test_torch_distributed.py::launch_ranks); the world-1 worker also
 computes the one-rank references after leaving its group, so every
 bit-equality compares runs with the same thread count. Inputs are made
@@ -17,7 +17,7 @@ Tolerances:
     the JAX package on integer descriptors, idx at valid queries and masks
     equal.
   * BA (float64): world 1 bit-equal to run_bundle_adjustment; worlds 2, 4
-    and 2x2 sum in another order: cost within rel 1e-9 and arrays within
+    and mesh4 sum in another order: cost within rel 1e-9 and arrays within
     1e-7 of it, the same iteration count. Against the JAX package's
     sharded BA (its fused dense LM, x64): cost rel 1e-6, poses 1e-6,
     points 1e-5.
@@ -26,10 +26,9 @@ Tolerances:
     world 1 (sweep, rect, rect + SGM, PatchMatch). Against the JAX package's sharded sweep, rect
     and rect + SGM: where both are valid, the median relative depth
     difference <= 1e-4 and the valid masks agree on >= 98% of the pixels.
-  * 2x2 against world 4 (the same shard count): matching and depth maps
+  * mesh4 against world 4 (the same shard count): matching and depth maps
     bit-equal; against the JAX package's sharded functions on make_mesh(4)
-    (4 of the 8 virtual CPU devices, whose order is the process-major
-    order of 2 ranks x 2 devices) with the tolerances above.
+    (4 of the 8 virtual CPU devices) with the tolerances above.
 """
 
 import os
@@ -42,8 +41,9 @@ from tests.test_parallel_mvs import _camera_ring
 from tests.test_torch_distributed import launch_ranks
 
 WORLDS = (1, 2, 4)
-# a run's shape: (ranks, -Pdevice= of each rank); "2x2" holds two devices a rank
-SHAPES = {1: (1, "cpu"), 2: (2, "cpu"), 4: (4, "cpu"), "2x2": (2, "cpu,cpu")}
+# a run's shape: (ranks, -Pdevice= of each rank); "mesh4" is one process's
+# mesh of four devices
+SHAPES = {1: (1, "cpu"), 2: (2, "cpu"), 4: (4, "cpu"), "mesh4": (1, "cpu,cpu,cpu,cpu")}
 DEPTH_CASES = {"sweep": dict(method="sweep"), "rect": dict(method="rect"),
                "rect_sgm": dict(method="rect", use_sgm=True),
                "patchmatch": dict(method="patchmatch", pm_iterations=5)}
@@ -63,6 +63,7 @@ from sfm_mvs_pipeline_tpu_torch.sfm.ba import BAConfig, run_bundle_adjustment
 
 CASES = %(cases)r
 DEVICES = os.environ["DEVICES"]
+SHAPE = os.environ["SHAPE"]
 z = dict(np.load(os.environ["INPUTS"]))
 rank = int(os.environ["RANK"])
 initialize_distributed()
@@ -121,7 +122,7 @@ def depth_per_view(**kw):
 out = run("", lambda *a, **k: match_pairs_sharded(*a, device=DEVICES, **k),
           run_bundle_adjustment_sharded, True)
 shutdown_distributed()
-if os.environ["WORLD_SIZE"] == "1":  # the one-rank references, same thread count
+if SHAPE == "1":  # the one-rank references, same thread count
     out.update(run("ref_", match_pairs_batch_np, run_bundle_adjustment, False))
     for name, kw in CASES.items():
         out["ref_depth_" + name], out["ref_valid_" + name] = depth_per_view(**kw)
@@ -186,8 +187,8 @@ def runs(tmp_path_factory):
     for shape, (ranks, devices) in SHAPES.items():
         pattern = str(tmp / f"w{shape}_r%d.npz")
         launch_ranks(["-c", script], ranks, env={"INPUTS": str(tmp / "inputs.npz"),
-                                                 "OUT": pattern, "DEVICES": devices},
-                     timeout=180)
+                                                 "OUT": pattern, "DEVICES": devices,
+                                                 "SHAPE": str(shape)}, timeout=180)
         res[shape] = [dict(np.load(pattern % r)) for r in range(ranks)]
     return res, z
 
@@ -336,11 +337,11 @@ def test_sharded_depth_maps_vs_jax(runs, case):
 
 
 @pytest.mark.parametrize("what", ["match", *DEPTH_CASES])
-def test_ranks_by_cards_bit_equal_to_world4(runs, what):
-    """2 ranks x 2 devices is 4 shards in rank-major order: the same blocks
-    of pairs and views as 4 ranks of one device, so the same bits."""
+def test_mesh_bit_equal_to_world4(runs, what):
+    """A mesh of 4 devices is 4 shards, a thread each: the same blocks of
+    pairs and views as 4 ranks of one device, so the same bits."""
     res, _ = runs
-    got, ref = res["2x2"][0], res[4][0]
+    got, ref = res["mesh4"][0], res[4][0]
     keys = [k for k in ref if k.startswith("match_")] if what == "match" else [
         "depth_" + what, "valid_" + what]
     for k in keys:
@@ -348,14 +349,13 @@ def test_ranks_by_cards_bit_equal_to_world4(runs, what):
 
 
 @pytest.mark.parametrize("what", ["match", "ba", "sweep", "rect", "rect_sgm"])
-def test_ranks_by_cards_vs_jax_mesh4(runs, what):
-    """2 ranks x 2 devices against the JAX package's sharded functions on
-    make_mesh(4): the same shard count, its device order the process-major
-    order of the ranks' shards."""
+def test_mesh_vs_jax_mesh4(runs, what):
+    """The port's mesh of 4 devices against the JAX package's sharded
+    functions on make_mesh(4): the same shard count."""
     from sfm_mvs_pipeline_tpu.parallel.mesh import make_mesh
 
     res, z = runs
-    got, mesh = res["2x2"][0], make_mesh(4)
+    got, mesh = res["mesh4"][0], make_mesh(4)
     if what == "match":
         from sfm_mvs_pipeline_tpu.parallel.matching import match_pairs_sharded as j_match
 
