@@ -5,7 +5,8 @@ cv::solvePnPRansac (ref: SfM.cpp:453-489). Half the hypotheses come from
 the 6-point DLT (rotation projected onto SO(3)), half from a 4-point
 plane-homography solver that stays exact on coplanar maps (two sign
 branches each). Scoring is the full-distortion reprojection error in
-pixels; the winner is polished by Gauss-Newton on its inliers.
+pixels; the winner is polished by Gauss-Newton on its inliers, on a CUDA
+card one graph replay a step (utils/step_graph.py).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from sfm_mvs_pipeline_tpu_torch.ops.ransac import (
     select_best,
     take,
 )
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count
+from sfm_mvs_pipeline_tpu_torch.utils.step_graph import StepGraph
 
 
 def _so3_project(M: torch.Tensor):
@@ -88,6 +91,55 @@ def _reproj_residuals_px(pose, intr, X, uv):
     return torch.where(z > 0, r, torch.full_like(r, float("inf")))
 
 
+def _gn_polish(pose, X, uv, intr, w, gn_iters: int) -> None:
+    """Gauss-Newton polish of `pose` (6,) in place on the points weighted
+    by `w` (the inliers): `gn_iters` steps of 6 dof, each accepted only if
+    the cost decreases. A step is one in-place update of `pose` with no
+    host read; where _graph_engages it is captured once as a CUDA graph
+    and replayed for every step, elsewhere called eagerly, with the same
+    launches and so the same bits."""
+
+    def residual_vec(p):
+        uv_hat, _ = project_points(p, intr, X)
+        return ((uv_hat - uv) * w[:, None]).reshape(-1)
+
+    eye = torch.eye(6, dtype=X.dtype, device=X.device)
+
+    def step():
+        J = torch.func.jacfwd(residual_vec)(pose).to(X.dtype)  # (2N, 6)
+        r = residual_vec(pose)
+        H = J.T @ J + 1e-6 * eye
+        dp = torch.linalg.solve_ex(H, J.T @ r)[0]
+        p_new = pose - dp
+        better = torch.sum(residual_vec(p_new) ** 2) < torch.sum(r**2)
+        pose.copy_(torch.where(better, p_new, pose))
+
+    graph = StepGraph(step, X.device, _warm_solve) if _graph_engages(X.device, gn_iters) else None
+    run = step if graph is None else graph
+    try:
+        for _ in range(gn_iters):
+            run()
+    finally:
+        if graph is not None:
+            graph.close()
+    count("pnp gn steps", gn_iters)
+    if graph is not None:
+        count("pnp graph steps", gn_iters)
+
+
+def _graph_engages(dev: torch.device, gn_iters: int) -> bool:
+    """Whether the polish replays its step as a CUDA graph: on a CUDA
+    device, with a step to take."""
+    return dev.type == "cuda" and gn_iters > 0
+
+
+def _warm_solve() -> None:
+    """The cuBLAS and cuSOLVER handles and workspaces of the step's
+    matmuls and solve_ex, made eagerly on the current stream."""
+    eye = torch.eye(6, device=torch.cuda.current_device())
+    torch.linalg.solve_ex(eye @ eye, eye[:, 0])
+
+
 def solve_pnp_ransac(
     rng,
     X: torch.Tensor,  # (N, 3) world points
@@ -104,7 +156,12 @@ def solve_pnp_ransac(
 
     `rng`: a torch.Generator, or the pair of uniform draws
     ((k_hyp // 2, 6) for the DLT family, ((k_hyp - k_hyp // 2) // 2, 4)
-    for the planar family)."""
+    for the planar family).
+
+    The polish's `gn_iters` Gauss-Newton steps go to the "pnp gn steps"
+    counter, and where they were replayed from a CUDA graph also to "pnp
+    graph steps"; each call adds one to "pnp solves" (utils/stage_timer.py)."""
+    count("pnp solves")
     xy = undistort_points(intr, uv)
     k_dlt = k_hyp // 2
     k_pl = (k_hyp - k_dlt) // 2  # planar samples emit 2 poses each
@@ -117,23 +174,8 @@ def solve_pnp_ransac(
     res = _reproj_residuals_px(poses, intr, X, uv)  # (K, N)
     pose, mask, _ = select_best(poses, res, valid, thresh_px)
 
-    # Gauss-Newton polish on the inliers (6 dof, fixed iteration count),
-    # each step accepted only if the cost decreases
-    w = mask.to(X.dtype)
-
-    def residual_vec(p):
-        uv_hat, _ = project_points(p, intr, X)
-        return ((uv_hat - uv) * w[:, None]).reshape(-1)
-
-    eye = torch.eye(6, dtype=X.dtype, device=X.device)
-    for _ in range(gn_iters):
-        J = torch.func.jacfwd(residual_vec)(pose).to(X.dtype)  # (2N, 6)
-        r = residual_vec(pose)
-        H = J.T @ J + 1e-6 * eye
-        dp = torch.linalg.solve_ex(H, J.T @ r)[0]
-        p_new = pose - dp
-        better = torch.sum(residual_vec(p_new) ** 2) < torch.sum(r**2)
-        pose = torch.where(better, p_new, pose)
+    pose = pose.clone()  # the polish's state, updated in place
+    _gn_polish(pose, X, uv, intr, mask.to(X.dtype), gn_iters)
 
     res_final = _reproj_residuals_px(pose, intr, X, uv)
     mask = (res_final <= thresh_px) & valid & torch.isfinite(res_final)

@@ -29,7 +29,6 @@ Jacobians come from torch.func.jacfwd, as the JAX package uses jax.jacfwd.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import threading
 
 import numpy as np
@@ -45,6 +44,7 @@ from sfm_mvs_pipeline_tpu_torch.models.cameras import (
 )
 from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat
 from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count
+from sfm_mvs_pipeline_tpu_torch.utils.step_graph import StepGraph
 
 # torch's forward-mode AD levels are process-wide, not per thread: the
 # shard threads of a mesh (parallel/ba.py) take their Jacobians one at a
@@ -603,7 +603,7 @@ def lm_solve(points, poses, intr, cam_of_shot, obs_point, obs_shot, obs_uv, obs_
         lam.copy_(new_lam)
         conv.bitwise_or_(step_conv)
 
-    graph = _StepGraph(step, dev) if _graph_engages(dev, reduce, cfg) else None
+    graph = StepGraph(step, dev, _warm_cholesky) if _graph_engages(dev, reduce, cfg) else None
     run = step if graph is None else graph
     it = 0
     try:
@@ -629,48 +629,8 @@ def _graph_engages(dev, reduce, cfg: BAConfig) -> bool:
     return torch.device(dev).type == "cuda" and reduce is None and cfg.solver == "device"
 
 
-class _StepGraph:
-    """lm_solve's step as one CUDA graph on card `dev`: captured at the
-    first call into a memory pool of its own, replayed at every call.
-    close() releases the graph, and dropping the pool returns its memory
-    to the card (a graph's default pool would stay reserved)."""
-
-    def __init__(self, step, dev):
-        self.step, self.dev = step, dev
-        self.graph = self.pool = None
-
-    def __call__(self) -> None:
-        with torch.cuda.device(self.dev):
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
-
-    def _capture(self) -> None:
-        """Record the launches of one call of the step on a side stream;
-        capturing runs none of them. Not torch.cuda.graph(...): its entry
-        synchronises and empties the allocator's cache, once a solve."""
-        stream = _capture_stream(torch.cuda.current_device())
-        self.pool, self.graph = torch.cuda.MemPool(), torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            # this thread's cuBLAS and cuSOLVER handles and this stream's
-            # workspaces are made eagerly, outside the capture and its pool
-            eye = torch.eye(2, device=stream.device)
-            torch.linalg.solve_triangular(torch.linalg.cholesky_ex(eye)[0], eye @ eye, upper=False)
-            self.graph.capture_begin(pool=self.pool.id, capture_error_mode="thread_local")
-            try:
-                self.step()
-            finally:
-                self.graph.capture_end()
-
-    def close(self) -> None:
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph = self.pool = None
-
-
-@functools.lru_cache(maxsize=None)
-def _capture_stream(index: int) -> torch.cuda.Stream:
-    """The side stream that captures lm_solve's steps on card `index`, one
-    a card, so its cuBLAS workspace is made once."""
-    with torch.cuda.device(index):
-        return torch.cuda.Stream()
+def _warm_cholesky() -> None:
+    """The cuBLAS and cuSOLVER handles and workspaces of the device solver
+    (equilibrated_cholesky_solve), made eagerly on the current stream."""
+    eye = torch.eye(2, device=torch.cuda.current_device())
+    torch.linalg.solve_triangular(torch.linalg.cholesky_ex(eye)[0], eye @ eye, upper=False)

@@ -245,7 +245,10 @@ def test_reconstruct_reports_the_sparse_spans_and_counters(insel_orb, recorder, 
     iters = [int(m) for line in logs for m in re.findall(r"^BA #\d+: .*\((\d+) iters", line)]
     assert len(iters) == sum(1 for s in recorder.spans() if s[0] == "ba") > stats["ba_runs"]
     assert sorted(ended) == sorted(s[0] for s in recorder.spans() if s[0] != "sfm")
-    assert recorder.counters() == {"lm iterations": sum(iters), "sfm starts": stats["attempts"]}
+    solves = sum(1 for s in recorder.spans() if s[0] == "pnp")  # a "pnp" span a solve
+    assert solves > 0
+    assert recorder.counters() == {"lm iterations": sum(iters), "sfm starts": stats["attempts"],
+                                   "pnp solves": solves, "pnp gn steps": 10 * solves}
 
 
 def test_mesh_from_depth_maps_reports_the_mesh_spans(recorder):
