@@ -36,7 +36,7 @@ import os
 import numpy as np
 import torch
 
-from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import stage
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count, stage
 
 
 @dataclasses.dataclass
@@ -330,7 +330,9 @@ def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo,
     rectified PatchMatch (K3) when a neighbour passes the rectification
     geometry gate, else the warp-based PatchMatch seeded from the rectified
     sweep. The view's generator is seeded with i, as the JAX package folds
-    i into PRNGKey(0). Returns (depth, cost, valid, log tag)."""
+    i into PRNGKey(0). The stage timer counts the view in "pm views", and
+    in "pm rect views" where it takes the rectified route. Returns (depth,
+    cost, valid, log tag)."""
     from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import patchmatch_depth, patchmatch_rect_depth
     from sfm_mvs_pipeline_tpu_torch.mvs.rectified import (
         derive_max_disp,
@@ -346,7 +348,9 @@ def _patchmatch_view(cfg, i, nbrs, grays_d, poses, poses_d, intr_d, focal, z_lo,
     geo_ok = rect_geometry_ok(poses[i], poses[nb]) & nb_ok
     md = derive_max_disp(poses[i], poses[nb], focal, float(z_lo), w)
     gen = torch.Generator(device=grays_d.device).manual_seed(i)
+    count("pm views")
     if geo_ok.any():
+        count("pm rect views")
         depth, cost, valid = patchmatch_rect_depth(
             grays_d[i], grays_d[nb], poses_d[i], poses_d[nb], intr_d, z_lo, z_hi, gen,
             iterations=cfg.pm_iterations, window_radius=cfg.window_radius,

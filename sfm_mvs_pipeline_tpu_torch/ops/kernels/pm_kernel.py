@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from sfm_mvs_pipeline_tpu_torch.ops.kernels import build as _build
+from sfm_mvs_pipeline_tpu_torch.utils import stage_timer
 
 SOURCE = "pm_kernel.cu"
 MAX_R = 4  # window radii compiled into the kernel: 1..4
@@ -73,6 +74,19 @@ def _check(cands, maps: dict, window_radius: int, maxd: int, parity) -> None:
         raise ValueError(f"parity must be None, 0 or 1, got {parity!r}")
 
 
+def _count_work(shape, window_radius: int, parity) -> None:
+    """Add a scoring's work to the stage timer's counters: "k3 candidate
+    pixels" (candidates x active pixels), "k3 window samples" (that times
+    (2r+1)^2, which carries the window radius), "k3 pixels" (H W) and "k3
+    costs" (C H W, every cost written)."""
+    c, h, w = shape
+    n_act = h * w if parity is None else (h * w + (1 - parity)) // 2
+    stage_timer.count("k3 candidate pixels", c * n_act)
+    stage_timer.count("k3 window samples", c * n_act * (2 * window_radius + 1) ** 2)
+    stage_timer.count("k3 pixels", h * w)
+    stage_timer.count("k3 costs", c * h * w)
+
+
 def pm_score_rect(
     cands: torch.Tensor,  # (C, H, W) candidate disparity maps (>= 0)
     ref_rect: torch.Tensor,  # (H, W) rectified ref image
@@ -91,12 +105,15 @@ def pm_score_rect(
     neighbour's invalid pixels (the plain version's own zeroing) and the
     kernel reads every tap from that copy, so a tap is one load; maxd sizes
     the kernel's staging of neighbour rows (candidates are expected in
-    [0, maxd]); the costs do not depend on it."""
+    [0, maxd]); the costs do not depend on it. Each call adds its work to
+    the stage timer's counters (_count_work), on either route."""
     if cands.device.type == "cpu":
         from sfm_mvs_pipeline_tpu_torch.mvs.patchmatch import pm_score_rect_plain
 
-        return pm_score_rect_plain(cands, ref_rect, nbr_rect, in_n, r_mean, r_var, maxd,
-                                   window_radius, parity=parity)
+        out = pm_score_rect_plain(cands, ref_rect, nbr_rect, in_n, r_mean, r_var, maxd,
+                                  window_radius, parity=parity)
+        _count_work(cands.shape, window_radius, parity)
+        return out
     f32 = torch.float32
     _check(cands, {"ref_rect": (ref_rect, f32), "nbr_rect": (nbr_rect, f32),
                    "in_n": (in_n, torch.bool), "r_mean": (r_mean, f32), "r_var": (r_var, f32)},
@@ -114,6 +131,7 @@ def pm_score_rect(
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
     _build.count_launch(pm_score_rect, cands.device)
+    _count_work(cands.shape, window_radius, parity)
     return out
 
 
