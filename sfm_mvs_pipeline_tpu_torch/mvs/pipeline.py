@@ -404,7 +404,9 @@ def _mesh(cfg, out_dir, depth_maps, valids, poses, intr, rgbs, grays, log, resul
         )
 
         with stage("texture"):
-            tex = build_texture_atlas(mesh["vertices"], mesh["faces"], poses, intr, rgbs)
+            with stage("texture atlas"):
+                tex = build_texture_atlas(mesh["vertices"], mesh["faces"], poses, intr, rgbs,
+                                          device=dev)
             with stage("texture write"):
                 write_ply_mesh_textured(path, mesh["vertices"], mesh["faces"], tex["uv"],
                                         tex["atlas"], colors=mesh.get("colors"))

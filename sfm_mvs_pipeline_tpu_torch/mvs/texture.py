@@ -6,17 +6,24 @@ src/cli/PhotogrammetrieCli.cpp:228) and the textured-PLY writer (ref:
 src/photogrammetrie/util/OpenMvsUtils.cpp:312-448: PLY with per-face
 `texcoord` lists + `comment TextureFile <png>`).
 
-Batched formulation: all faces are processed as one batch —
+Batched formulation, in torch on the pipeline's device: all faces are
+processed as one batch —
   1. best view per face = argmax over views of (facing cosine) / depth^2
-     for faces whose centroid projects inside the view,
-  2. every face gets one BxB atlas block; its texel grid is barycentric-
-     interpolated to 3D in a single (F, B*B, 3) array, projected and
-     bilinearly sampled per view group,
-  3. the atlas assembles by one reshape (blocks are laid out row-major).
+     for faces whose centroid projects inside the view, one (V, F) score,
+  2. every face gets one BxB atlas block; its texels are barycentric-
+     interpolated to 3D, projected into the face's view and bilinearly
+     sampled, in chunks of faces that cap the temporaries,
+  3. the atlas assembles by one reshape (blocks are laid out row-major)
+     and is read to the host once; the PNG and the PLY are written there.
 The sequential chart-packing openMVS does has no batched analogue; uniform
 blocks trade some texture space for a fully vectorized fill.
 
-Copy of sfm_mvs_pipeline_tpu/mvs/texture.py: host numpy in both packages.
+The arithmetic is sfm_mvs_pipeline_tpu/mvs/texture.py's host numpy in
+float32: the faces' corners, normals and centroids from the vertices cast
+to float32, each view's rotation by Rodrigues in float64 cast to float32.
+Where numpy promotes (the bilinear weights, float32 less an int32 corner
+index, are float64 there) the port stays in float32, so a texel whose
+blend lands next to a half rounds to its neighbour.
 """
 
 from __future__ import annotations
@@ -25,58 +32,93 @@ import os
 
 import numpy as np
 
+from sfm_mvs_pipeline_tpu_torch.utils.stage_timer import count
 
-def _face_geometry(vertices: np.ndarray, faces: np.ndarray):
-    v0, v1, v2 = (vertices[faces[:, i]] for i in range(3))
-    n = np.cross(v1 - v0, v2 - v0)
-    norm = np.linalg.norm(n, axis=1, keepdims=True)
-    n = n / np.maximum(norm, 1e-12)
-    centroid = (v0 + v1 + v2) / 3.0
-    return n, centroid
+_CHUNK_TEXELS = 4_000_000  # texels sampled at once: caps the temporaries
 
 
-def select_face_views(
-    vertices: np.ndarray,
-    faces: np.ndarray,
-    poses: np.ndarray,  # (V, 6)
-    intr: np.ndarray,  # (7,)
-    image_hw: tuple[int, int],
-) -> np.ndarray:
-    """Best source view per face (int, -1 when no view sees the face).
+def _cameras(poses: np.ndarray, dev):
+    """Each view's rotation (V, 3, 3), translation (V, 3) and centre (V, 3)
+    as float32 tensors on `dev`, computed on the host as numpy does."""
+    import torch
 
-    Score mirrors openMVS's face-view quality: viewing angle x resolution
-    (projected area ~ cos(theta)/z^2). Host numpy: per-view pinhole
-    projection of face centroids (images are pre-undistorted)."""
     from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat_np
 
-    normals, centroids = _face_geometry(vertices, faces)
+    R = np.stack([aa_to_rotmat_np(p[:3]).astype(np.float32) for p in poses])
+    t = np.asarray(poses, np.float32)[:, 3:6]
+    C = np.stack([-R[v].T @ t[v] for v in range(len(poses))])
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in (R, t, C))
+
+
+def select_face_views(corners, R, t, C, intr, image_hw: tuple[int, int]):
+    """Best source view per face (int64 tensor, -1 when no view sees the
+    face), on the device of `corners` (F, 3, 3) float32.
+
+    Score mirrors openMVS's face-view quality: viewing angle x resolution
+    (projected area ~ cos(theta)/z^2), one (V, F) score over every view's
+    pinhole projection of the face centroids (images are pre-undistorted)."""
+    import torch
+
+    v0, v1, v2 = corners.unbind(1)
+    n = torch.linalg.cross(v1 - v0, v2 - v0)
+    n = n / torch.sqrt((n * n).sum(1, keepdim=True)).clamp_min(1e-12)
+    cent = (v0 + v1 + v2) / 3.0
     h, w = image_hw
-    nf = len(faces)
-    score = np.full((len(poses), nf), -1.0, np.float32)
-    cent32 = centroids.astype(np.float32)
-    for v in range(len(poses)):
-        R = aa_to_rotmat_np(poses[v][:3]).astype(np.float32)
-        t = poses[v][3:6].astype(np.float32)
-        Xc = cent32 @ R.T + t
-        z = Xc[:, 2]
-        zs = np.maximum(z, 1e-6)
-        x = Xc[:, 0] / zs * intr[0] + intr[1]
-        y = Xc[:, 1] / zs * intr[0] + intr[2]
-        C = -R.T @ t  # camera center
-        to_cam = C[None] - cent32
-        to_cam /= np.maximum(
-            np.linalg.norm(to_cam, axis=-1, keepdims=True), 1e-12
-        )
-        cosang = np.einsum("fk,fk->f", to_cam, normals.astype(np.float32))
-        inside = (
-            (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1) & (z > 1e-6)
-        )
-        score[v] = np.where(
-            inside & (cosang > 0.05), cosang / zs**2, -1.0
-        )
-    best = score.argmax(0)
-    best[score.max(0) <= 0] = -1
-    return best.astype(np.int32)
+    Xc = torch.matmul(cent, R.mT) + t[:, None]  # (V, F, 3)
+    z = Xc[..., 2]
+    zs = z.clamp_min(1e-6)
+    x = Xc[..., 0] / zs * float(intr[0]) + float(intr[1])
+    y = Xc[..., 1] / zs * float(intr[0]) + float(intr[2])
+    to_cam = C[:, None] - cent
+    to_cam = to_cam / torch.sqrt((to_cam * to_cam).sum(-1, keepdim=True)).clamp_min(1e-12)
+    cosang = (to_cam * n).sum(-1)
+    inside = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1) & (z > 1e-6)
+    score = torch.where(inside & (cosang > 0.05), cosang / zs**2, -1.0)
+    top, best = score.max(0)  # the first of equal scores, as numpy's argmax
+    return torch.where(top > 0, best, -1)
+
+
+def _texel_weights(block: int) -> np.ndarray:
+    """Barycentric weights (B*B, 3) float32 of one block's texel grid:
+    corners (.5,.5) (B-.5,.5) (.5,B-.5), texels past the diagonal clamped
+    back onto the triangle (edge bleed)."""
+    ii, jj = np.meshgrid(np.arange(block), np.arange(block), indexing="ij")
+    l1 = (jj.astype(np.float64)) / (block - 1)  # toward corner 1 (u axis)
+    l2 = (ii.astype(np.float64)) / (block - 1)  # toward corner 2 (v axis)
+    over = np.maximum(l1 + l2 - 1.0, 0.0) / 2.0
+    l1 = np.clip(l1 - over, 0, 1).ravel()
+    l2 = np.clip(l2 - over, 0, 1).ravel()
+    l0 = np.clip(1.0 - l1 - l2, 0, 1)
+    return np.stack([l0, l1, l2], axis=1).astype(np.float32)
+
+
+def _sample(L, corners, best, R, t, images, intr):
+    """The (Fc, B*B, 3) uint8 texels of a chunk of faces: each texel's
+    point (weights @ corners) projected into its face's view and bilinearly
+    sampled from that view's image, rounded half to even; 128 where the
+    face has no view."""
+    import torch
+
+    nv, vh, vw = images.shape[:3]
+    v = best.clamp_min(0)
+    p = torch.matmul(L, corners)  # (Fc, B*B, 3)
+    Xc = torch.matmul(p, R[v].mT) + t[v][:, None]
+    z = Xc[..., 2].clamp_min(1e-9)
+    # images are undistorted; intr distortion terms are zero here
+    x = (Xc[..., 0] / z * float(intr[0]) + float(intr[1])).clamp(0.0, vw - 1.0)
+    y = (Xc[..., 1] / z * float(intr[0]) + float(intr[2])).clamp(0.0, vh - 1.0)
+    x0 = x.to(torch.int32).clamp_max(vw - 2)
+    y0 = y.to(torch.int32).clamp_max(vh - 2)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    flat = images.view(nv * vh * vw, 3)
+    i00 = (v[:, None] * vh + y0) * vw + x0
+    s = flat[i00] * ((1 - fx) * (1 - fy))
+    s += flat[i00 + 1] * (fx * (1 - fy))
+    s += flat[i00 + vw] * ((1 - fx) * fy)
+    s += flat[i00 + vw + 1] * (fx * fy)
+    texels = s.round().clamp(0, 255).to(torch.uint8)
+    return torch.where(best[:, None, None] >= 0, texels, 128)
 
 
 def build_texture_atlas(
@@ -86,76 +128,50 @@ def build_texture_atlas(
     intr: np.ndarray,
     images: np.ndarray,  # (V, H, W, 3) uint8 (undistorted)
     block: int = 8,
+    device=None,
 ) -> dict:
-    """Returns {"atlas": (A, A, 3) uint8, "uv": (F, 3, 2) float in [0, 1]}."""
+    """Returns {"atlas": (A, A, 3) uint8, "uv": (F, 3, 2) float in [0, 1],
+    "face_view": (F,) int32}, numpy arrays; the view selection, sampling
+    and assembly run on `device` (default: the card; raises without one),
+    with one host read of the atlas and the face views. Counts the faces
+    in "texture faces", and in "texture device faces" on a card."""
+    import torch
+
+    from sfm_mvs_pipeline_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
     nf = len(faces)
     vh, vw = images.shape[1:3]
-    best = select_face_views(vertices, faces, poses, intr, (vh, vw))
+    count("texture faces", nf)
+    if dev.type == "cuda":
+        count("texture device faces", nf)
 
     cols = max(1, int(np.ceil(np.sqrt(max(nf, 1)))))
     rows = max(1, -(-nf // cols))
     aw, ah = cols * block, rows * block
 
-    # barycentric texel grid of one block: corners (.5,.5) (B-.5,.5) (.5,B-.5)
-    ii, jj = np.meshgrid(np.arange(block), np.arange(block), indexing="ij")
-    l1 = (jj.astype(np.float64)) / (block - 1)  # toward corner 1 (u axis)
-    l2 = (ii.astype(np.float64)) / (block - 1)  # toward corner 2 (v axis)
-    # clamp texels past the diagonal back onto the triangle (edge bleed)
-    over = np.maximum(l1 + l2 - 1.0, 0.0) / 2.0
-    l1 = np.clip(l1 - over, 0, 1).ravel()
-    l2 = np.clip(l2 - over, 0, 1).ravel()
-    l0 = np.clip(1.0 - l1 - l2, 0, 1)
+    V = torch.as_tensor(np.asarray(vertices, np.float32), device=dev)
+    F = torch.as_tensor(np.asarray(faces, np.int64), device=dev)
+    corners = V[F]  # (F, 3, 3)
+    R, t, C = _cameras(poses, dev)
+    imgs = torch.as_tensor(np.ascontiguousarray(images, np.uint8), device=dev)
+    best = select_face_views(corners, R, t, C, intr, (vh, vw))
 
-    # Host-numpy sampling: pure projection + bilinear gather. Texel
-    # positions are produced per CHUNK of faces with a batched f32 matmul
-    # (barycentric weights @ face corners), which caps peak temp memory.
-    from sfm_mvs_pipeline_tpu_torch.ops.pose import aa_to_rotmat_np
-
-    L = np.stack([l0, l1, l2], axis=1).astype(np.float32)  # (B*B, 3)
-    corners = np.stack(
-        [vertices[faces[:, i]] for i in range(3)], axis=1
-    ).astype(np.float32)  # (F, 3, 3)
-    texels = np.full((nf, block * block, 3), 128, np.uint8)
-    chunk_faces = max(1, 4_000_000 // (block * block))
-    for v in np.unique(best):
-        if v < 0:
-            continue
-        sel = np.nonzero(best == v)[0]
-        R = aa_to_rotmat_np(poses[v][:3]).astype(np.float32)
-        t = poses[v][3:6].astype(np.float32)
-        img = images[v]
-        for c0 in range(0, len(sel), chunk_faces):
-            sc = sel[c0 : c0 + chunk_faces]
-            # (Fc, B*B, 3) texel positions, one BLAS batch matmul
-            p = (L @ corners[sc]).reshape(-1, 3)
-            Xc = p @ R.T + t
-            z = np.maximum(Xc[:, 2], 1e-9)
-            # images are undistorted; intr distortion terms are zero here
-            x = np.clip(Xc[:, 0] / z * intr[0] + intr[1], 0.0, vw - 1.0)
-            y = np.clip(Xc[:, 1] / z * intr[0] + intr[2], 0.0, vh - 1.0)
-            x0 = np.minimum(x.astype(np.int32), vw - 2)
-            y0 = np.minimum(y.astype(np.int32), vh - 2)
-            fx = (x - x0)[:, None]
-            fy = (y - y0)[:, None]
-            s = img[y0, x0] * ((1 - fx) * (1 - fy))
-            s += img[y0, x0 + 1] * (fx * (1 - fy))
-            s += img[y0 + 1, x0] * ((1 - fx) * fy)
-            s += img[y0 + 1, x0 + 1] * (fx * fy)
-            texels[sc] = np.clip(np.round(s), 0, 255).astype(
-                np.uint8
-            ).reshape(len(sc), block * block, 3)
-
-    # assemble: pad to rows*cols blocks, reshape row-major
-    pad = rows * cols - nf
-    blocks = np.concatenate(
-        [texels.reshape(nf, block, block, 3),
-         np.full((pad, block, block, 3), 128, np.uint8)]
-    )
+    L = torch.as_tensor(_texel_weights(block), device=dev)
+    blocks = torch.full((rows * cols, block * block, 3), 128, dtype=torch.uint8, device=dev)
+    chunk = max(1, _CHUNK_TEXELS // (block * block))
+    for c0 in range(0, nf, chunk):
+        c1 = min(c0 + chunk, nf)
+        blocks[c0:c1] = _sample(L, corners[c0:c1], best[c0:c1], R, t, imgs, intr)
+    # assemble: blocks row-major, read to the host once
     atlas = (
-        blocks.reshape(rows, cols, block, block, 3)
-        .transpose(0, 2, 1, 3, 4)
+        blocks.view(rows, cols, block, block, 3)
+        .permute(0, 2, 1, 3, 4)
         .reshape(ah, aw, 3)
+        .cpu()
+        .numpy()
     )
+    face_view = best.to(torch.int32).cpu().numpy()
 
     # per-face-corner texcoords (u right, v up — flipped y like openMVS)
     bi = np.arange(nf)
@@ -172,7 +188,7 @@ def build_texture_atlas(
     uv_out = np.empty_like(corners_px, dtype=np.float64)
     uv_out[..., 0] = corners_px[..., 0] / aw
     uv_out[..., 1] = 1.0 - corners_px[..., 1] / ah
-    return {"atlas": atlas, "uv": uv_out.astype(np.float32), "face_view": best}
+    return {"atlas": atlas, "uv": uv_out.astype(np.float32), "face_view": face_view}
 
 
 def write_ply_mesh_textured(

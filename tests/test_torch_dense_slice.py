@@ -84,7 +84,7 @@ def test_run_mvs_port_vs_jax(insel_run, monkeypatch):
         stage_timer.enable(False)
     # 3 views x 2 neighbours: each pair sweeps twice (before and after SGM)
     assert stages["rect sweep"][1] == 12 and stages["sgm"][1] == 6, stages
-    assert {"load + undistort", "consensus", "fusion", "mesh", "texture"} <= set(stages)
+    assert {"load + undistort", "consensus", "fusion", "mesh", "texture", "texture atlas"} <= set(stages)
     devices = jax.devices
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices(*a, **k)[:1])
     res_j = JPIPE.run_mvs(scene_j, str(out_j), JPIPE.MVSConfig(**kw))

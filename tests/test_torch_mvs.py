@@ -236,12 +236,16 @@ def test_plain_k2b_matches_staged_pallas(rng):
 
 
 def test_mesh_texture_refine(scene):
-    """Meshing (torch on the given device, here the CPU), texturing
-    (host numpy) and the photometric refinement (torch ZNCC scorer) against
-    the JAX package on the scene's exact depth maps. Mesh vertices atol
-    1e-4 (f32 back-projection, then cluster means), faces and atlas exact;
-    refinement: >= 99% of vertices move to the same place (a ZNCC near-tie
-    between two offsets may resolve differently), all within 1e-4."""
+    """Meshing and texturing (torch on the given device, here the CPU) and
+    the photometric refinement (torch ZNCC scorer) against the JAX package
+    on the scene's exact depth maps. Mesh vertices atol 1e-4 (f32
+    back-projection, then cluster means), faces exact; texture coordinates
+    and face views exact, atlas texels within 1 and >= 99.9% exact (the
+    JAX package's bilinear blend is float64, numpy promoting float32 less
+    an int32 index, the port's float32: a blend next to a half rounds to
+    its neighbour); refinement: >= 99% of vertices move to the same place
+    (a ZNCC near-tie between two offsets may resolve differently), all
+    within 1e-4."""
     from sfm_mvs_pipeline_tpu.mvs import mesh as JM
     from sfm_mvs_pipeline_tpu.mvs import refine as JRF
     from sfm_mvs_pipeline_tpu.mvs import texture as JT
@@ -258,14 +262,43 @@ def test_mesh_texture_refine(scene):
     np.testing.assert_array_equal(mt["faces"], mj["faces"])
     np.testing.assert_allclose(mt["vertices"], mj["vertices"], atol=1e-4)
     V, Fc = mj["vertices"], mj["faces"]
-    tt = TT.build_texture_atlas(V, Fc, poses, intr, rgbs)
+    tt = TT.build_texture_atlas(V, Fc, poses, intr, rgbs, device="cpu")
     tj = JT.build_texture_atlas(V, Fc, poses, intr, rgbs)
-    for k in ("atlas", "uv", "face_view"):
+    for k in ("uv", "face_view"):
         np.testing.assert_array_equal(tt[k], tj[k])
+    assert tt["atlas"].shape == tj["atlas"].shape and tt["atlas"].dtype == np.uint8
+    diff = np.abs(tt["atlas"].astype(int) - tj["atlas"].astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999, (diff.max(), (diff == 0).mean())
     rt = TRF.refine_mesh_photometric(V, Fc, poses, intr, grays, device="cpu")
     rj = JRF.refine_mesh_photometric(V, Fc, poses, intr, grays)
     same = np.all(np.abs(rt - rj) <= 1e-4, axis=1)
     assert same.mean() >= 0.99, same.mean()
+
+
+@pytest.mark.parametrize("faces", [np.zeros((0, 3), int), np.array([[0, 2, 1], [3, 4, 5]])],
+                         ids=["no faces", "a face behind the views"])
+def test_texture_atlas_edges_match_jax(scene, faces):
+    """build_texture_atlas on "cpu" against the JAX package where a face
+    has no view or there is no face: the same atlas (one block per face,
+    at least one block, 128 where no view sees the face), coordinates and
+    face views (-1 for the face behind every camera)."""
+    from sfm_mvs_pipeline_tpu.mvs import texture as JT
+    from sfm_mvs_pipeline_tpu_torch.mvs import texture as TT
+
+    grays, _, poses, intr = scene
+    rgbs = np.repeat((grays * 255).astype(np.uint8)[..., None], 3, axis=-1)
+    V = np.array([[0, 0, 8.0], [0.5, 0, 8.0], [0, 0.5, 8.0],
+                  [0, 0, -8.0], [0.5, 0, -8.0], [0, 0.5, -8.0]])
+    tt = TT.build_texture_atlas(V, faces, poses, intr, rgbs, device="cpu")
+    tj = JT.build_texture_atlas(V, faces, poses, intr, rgbs)
+    for k in ("atlas", "uv", "face_view"):
+        np.testing.assert_array_equal(tt[k], tj[k])
+    assert tt["atlas"].shape == ((8, 16, 3) if len(faces) else (8, 8, 3))
+    if len(faces):
+        assert tt["face_view"][0] >= 0 and tt["face_view"][1] == -1
+        assert (tt["atlas"][:, 8:] == 128).all() and (tt["atlas"][:, :8] != 128).any()
+    else:
+        assert (tt["atlas"] == 128).all()
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.02], ids=["exact", "noisy"])

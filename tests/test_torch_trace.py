@@ -10,7 +10,8 @@ start is abandoned, tests/test_torch_sfm_restart.py) reports the six sparse
 spans, an "lm iterations" counter equal to its logged BA iterations and an
 "sfm starts" counter equal to its attempts; mesh_from_depth_maps reports
 the five mesh spans and counts its raw vertices in "mesh raw vertices"
-("mesh device vertices" stays 0 on the CPU). The CLI's ORB branch reports "orb detect" and "orb
+("mesh device vertices" stays 0 on the CPU); build_texture_atlas counts its
+faces in "texture faces" ("texture device faces" stays 0 on the CPU). The CLI's ORB branch reports "orb detect" and "orb
 describe" inside "features" and the counters "orb keypoints" and "orb
 slots" (SIFT none of them), and the scene checkpoint is written under
 "scene write".
@@ -275,6 +276,28 @@ def test_mesh_from_depth_maps_reports_the_mesh_spans(recorder):
     raw, = [int(m.group(1)) for ln in logs if (m := re.match(r"raw mesh: (\d+) verts", ln))]
     assert raw > 0 and recorder.counters().get("mesh raw vertices") == raw
     assert not recorder.counters().get("mesh device vertices")  # clustered on the CPU
+
+
+def test_build_texture_atlas_counts_its_faces(recorder):
+    """build_texture_atlas counts its faces in "texture faces" at every
+    call, those it sampled on a card in "texture device faces": none on the
+    CPU (tests/test_torch_texture_gpu.py holds the card's count)."""
+    from sfm_mvs_pipeline_tpu_torch.models.cameras import make_intrinsics
+    from sfm_mvs_pipeline_tpu_torch.mvs.texture import build_texture_atlas
+
+    h, w = 24, 32
+    yy, xx = np.mgrid[0:4, 0:4]
+    verts = np.stack([xx.ravel() * 0.1, yy.ravel() * 0.1, np.full(16, 5.0)], 1)
+    a = (yy * 4 + xx)[:-1, :-1].ravel()
+    faces = np.concatenate([np.stack([a, a + 4, a + 1], 1), np.stack([a + 1, a + 4, a + 5], 1)])
+    images = np.random.default_rng(0).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    poses = np.zeros((2, 6))
+    poses[1, 3] = -0.1
+    intr = make_intrinsics(w, h).numpy().astype(np.float32)
+    for _ in range(2):
+        tex = build_texture_atlas(verts, faces, poses, intr, images, device="cpu")
+    assert len(faces) == 18 and (tex["face_view"] >= 0).all()
+    assert recorder.counters() == {"texture faces": 2 * len(faces)}
 
 
 def _inside(spans, name, outer):
